@@ -11,20 +11,29 @@ wall seconds, each under a watchdog:
   1. the card's name and power limit, as nvidia-smi gives them;
   2. build the CUDA kernels (one nvcc call, no PyTorch headers);
   3. each kernel against its plain PyTorch version on the card, at the shapes
-     the full_44KHz main path gives it;
+     the full_44KHz main path gives it (the channel-major im2col conv at the
+     channel-major counterparts of the conv's shapes);
   4. each kernel timed with CUDA events beside its bound, its plain version
      and one PyTorch library call computing the same function (cuDNN
-     conv1d + leaky_relu for the conv, a depthwise conv_transpose1d for the
+     conv1d + leaky_relu for the convs, a depthwise conv_transpose1d for the
      interpolation), each library call first held against the plain version;
+  4a. im2col: the counterpart of tools/pallas_im2col_bench.py, the entry
+     point of the channel-major im2col conv kernel: the 12 down-path conv
+     shapes of full_44KHz at the training window (16,384 frames, input
+     147,443) and batch 16, each held against the plain version and against
+     the channel-last conv kernel, and timed beside its bound, the plain
+     version, cuDNN and the channel-last kernel;
   5. serve full_44KHz at full width (12 layers, 24 filters, 65,536-frame
      window, batch 16, seeded random weights): three separate() requests of
      synthesised stereo 44.1 kHz clips (2 s, 10 s, 30 s), each served three
      times; the kernels' launch counts over those requests; one chunk's
      forward and the 2 s request held against the plain PyTorch path on the
-     card;
+     card; the im2col kernel is launched by none of them;
   6. where the time goes: each kernel launch of one 16-window forward timed
      by CUDA events, beside its bound, and its plain version and library
-     call timed on the same inputs; each request's forward chunks timed
+     call timed on the same inputs; the im2col kernel run and timed on a
+     channel-major copy of each conv launch's input and held against the
+     conv kernel's output; each request's forward chunks timed
      on the device beside its wall time; and a small
      configuration served on the card and on the CPU (the plain path the
      CPU tests hold against the JAX package), compared.
@@ -50,7 +59,7 @@ SEED = 1234
 
 # Per-phase watchdog limits in seconds; the whole run aims at under 5 min.
 LIMITS = {"nvidia-smi": 30, "build": 400, "kernels": 120, "timing": 180,
-          "serve": 420, "forward": 180}
+          "im2col": 240, "serve": 420, "forward": 300}
 
 # Peaks of one H100 SXM (NVIDIA data sheet) for the bound: fp32 on the CUDA
 # cores (the kernels compute in fp32 without tensor cores) and HBM3.
@@ -117,12 +126,50 @@ def bound_ms(flops: float, nbytes: float):
                                        else "bytes")
 
 
-def conv_library(x, w_lib, b):
-    """One cuDNN conv (TF32 off) and leaky_relu over x [B, L, Cin], with
-    w_lib = w.permute(2, 1, 0) ([Cout, Cin, K]) prepared once; channel-major
-    output. A yardstick only: the port never calls it."""
+def conv_library_ncl(x, w_lib, b):
+    """One cuDNN conv (TF32 off) and leaky_relu over channel-major x
+    [B, Cin, L], with w_lib = w.permute(2, 1, 0) ([Cout, Cin, K]) prepared
+    once; channel-major output. A yardstick only: the port never calls it."""
     import torch.nn.functional as F
-    return F.leaky_relu(F.conv1d(x.transpose(1, 2), w_lib, b), 0.2)
+    return F.leaky_relu(F.conv1d(x, w_lib, b), 0.2)
+
+
+def conv_library(x, w_lib, b):
+    """conv_library_ncl over channel-last x [B, L, Cin] (a transposed view);
+    channel-major output."""
+    return conv_library_ncl(x.transpose(1, 2), w_lib, b)
+
+
+def channel_major(x):
+    """A channel-major copy [B, C, L] of channel-last x [B, L, C]. A
+    decimated view x = full[:, ::s, :] is copied undecimated and returned as
+    the view [:, :, ::s] of the copy, as the model reads it."""
+    B, L, C = x.shape
+    s = x.stride(1) // C if L > 1 else 1
+    if s > 1 and x.stride(1) == s * C and x.stride(2) == 1:
+        full = x.as_strided((B, (L - 1) * s + 1, C),
+                            (x.stride(0), C, 1))
+        return full.transpose(1, 2).contiguous()[:, :, ::s]
+    return x.transpose(1, 2).contiguous()
+
+
+def conv_bound(x_numel, K, cin, cout, y_numel):
+    """bound_ms of one conv launch: its FLOPs, and its bytes with each input
+    read once and the output written once."""
+    return bound_ms(2.0 * y_numel * K * cin,
+                    4.0 * (x_numel + K * cin * cout + cout + y_numel))
+
+
+def im2col_tool_shapes(cfg, in_len):
+    """The down-path conv shapes of tools/pallas_im2col_bench.py: name, input
+    length, K, Cin, Cout for each layer, from the input length in_len."""
+    L, cin, rows = in_len, cfg.num_channels, []
+    for i in range(cfg.num_layers):
+        cout = cfg.num_initial_filters * (i + 1)
+        rows.append((f"down_{i}", L, cfg.filter_size, cin, cout))
+        L = (L - cfg.filter_size) // 2 + 1
+        cin = cout
+    return rows
 
 
 def interp_library_weights(w):
@@ -198,7 +245,9 @@ def main() -> int:
     from waveunet_tpu_torch.config import get_config
     from waveunet_tpu_torch.infer.engine import Separator, window_positions
     from waveunet_tpu_torch.models import waveunet as model
-    from waveunet_tpu_torch.ops.kernels import build, conv1d_fused, interp
+    from waveunet_tpu_torch.ops import shapes
+    from waveunet_tpu_torch.ops.kernels import (build, conv1d_fused,
+                                                conv1d_im2col, interp)
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -237,16 +286,21 @@ def main() -> int:
         return torch.from_numpy(
             rng.standard_normal(shape).astype(np.float32)).to(dev)
 
-    conv_cases, interp_cases = [], []
+    def conv_params(K, cin, cout):
+        """Glorot-uniform w [K, cin, cout] and a small bias, on the card."""
+        lim = float(np.sqrt(6.0 / (K * (cin + cout))))
+        w = (torch.rand(K, cin, cout, generator=gen) * 2 * lim - lim).to(dev)
+        return w, 0.1 * randn(cout)
+
+    conv_cases, interp_cases, im2col_cases = [], [], []
+    launches_by_phase = {}
     with phase("kernels"):
+        conv1d_im2col.launches = 0
         for name, L, K, cin, cout, decimated in conv_shapes:
             # a decimated layer reads the strided view of a 2x longer map
             full = randn(B, 2 * L - 1 if decimated else L, cin)
             x = full[:, ::2, :] if decimated else full
-            lim = float(np.sqrt(6.0 / (K * (cin + cout))))
-            w = (torch.rand(K, cin, cout, generator=gen) * 2 * lim
-                 - lim).to(dev)
-            b = 0.1 * randn(cout)
+            w, b = conv_params(K, cin, cout)
             got = conv1d_fused.conv1d_lrelu_cuda(x, w, b)
             want = conv1d_fused.conv1d_lrelu_plain(x, w, b)
             torch.cuda.synchronize()
@@ -266,6 +320,31 @@ def main() -> int:
                 fail(f"the library conv at {name} disagrees with the plain "
                      f"version")
             conv_cases.append((name, x, w, b, w_lib, err))
+        for name, L, K, cin, cout, decimated in conv_shapes:
+            # channel-major; a decimated layer reads x[:, :, ::2] of a map
+            full = randn(B, cin, 2 * L - 1 if decimated else L)
+            x = full[:, :, ::2] if decimated else full
+            w, b = conv_params(K, cin, cout)
+            got = conv1d_im2col.conv1d_lrelu_im2col_cuda(x, w, b)
+            want = conv1d_im2col.conv1d_lrelu_im2col_plain(x, w, b)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            print(f"conv1d_lrelu_im2col {name}: x {tuple(x.shape)} "
+                  f"{'(strided view) ' if decimated else ''}K={K} "
+                  f"{cin}->{cout}: max_abs_err {err:.3e} (tol {CONV_ATOL})",
+                  flush=True)
+            if not err <= CONV_ATOL:
+                fail(f"conv1d_lrelu_im2col {name} disagrees with its plain "
+                     f"version")
+            w_lib = w.permute(2, 1, 0).contiguous()  # [Cout, Cin, K], once
+            lib_err = (conv_library_ncl(x, w_lib, b) - want).abs().max().item()
+            print(f"  library conv1d+leaky_relu (NCL) {name} vs plain: "
+                  f"max_abs_err {lib_err:.3e} (tol {CONV_ATOL})", flush=True)
+            if not lib_err <= CONV_ATOL:
+                fail(f"the NCL library conv at {name} disagrees with the "
+                     f"plain version")
+            im2col_cases.append((name, x, w, b, w_lib, err))
+            del got, want
         for name, n, C in interp_shapes:
             x = randn(B, n, C)
             w = randn(C)
@@ -287,7 +366,7 @@ def main() -> int:
                      f"plain version")
             interp_cases.append((name, x, w, wt, err))
 
-    conv_rows, interp_rows = [], []
+    conv_rows, interp_rows, im2col_rows = [], [], []
     with phase("timing"):
         for name, x, w, b, w_lib, err in conv_cases:
             Bx, L, cin = x.shape
@@ -303,12 +382,29 @@ def main() -> int:
                 "library_ms": time_cuda(lambda: conv_library(x, w_lib, b),
                                         torch),
             }
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                2.0 * Bx * L_out * cout * K * cin,
-                4.0 * (Bx * L * cin + K * cin * cout + cout
-                       + Bx * L_out * cout))
+            row["bound_ms"], row["bound_by"] = conv_bound(
+                Bx * L * cin, K, cin, cout, Bx * L_out * cout)
             conv_rows.append(row)
             print(f"time conv1d_lrelu {name}: {json.dumps(row)}", flush=True)
+        for name, x, w, b, w_lib, err in im2col_cases:
+            Bx, cin, L = x.shape
+            K, _, cout = w.shape
+            row = {
+                "shape": name, "x": list(x.shape), "K": K, "cin": cin,
+                "cout": cout, "max_abs_err": err,
+                "ms": time_cuda(lambda: conv1d_im2col.conv1d_lrelu_im2col_cuda(
+                    x, w, b), torch),
+                "plain_ms": time_cuda(
+                    lambda: conv1d_im2col.conv1d_lrelu_im2col_plain(x, w, b),
+                    torch),
+                "library_ms": time_cuda(lambda: conv_library_ncl(x, w_lib, b),
+                                        torch),
+            }
+            row["bound_ms"], row["bound_by"] = conv_bound(
+                Bx * L * cin, K, cin, cout, Bx * (L - K + 1) * cout)
+            im2col_rows.append(row)
+            print(f"time conv1d_lrelu_im2col {name}: {json.dumps(row)}",
+                  flush=True)
         for name, x, w, wt, err in interp_cases:
             Bx, n, C = x.shape
             n_out = 2 * n - 1 if cfg.context else 2 * n
@@ -327,6 +423,56 @@ def main() -> int:
             interp_rows.append(row)
             print(f"time learned_interp {name}: {json.dumps(row)}", flush=True)
 
+    launches_by_phase["kernels+timing"] = conv1d_im2col.launches
+
+    tool_rows = []
+    with phase("im2col"):
+        conv1d_im2col.launches = 0
+        tool_in_len, _ = shapes.get_padding(cfg, cfg.num_frames)
+        for name, L, K, cin, cout in im2col_tool_shapes(cfg, tool_in_len):
+            x = randn(B, cin, L)
+            w, b = conv_params(K, cin, cout)
+            x_cl = x.transpose(1, 2).contiguous()  # the channel-last kernel's
+            w_lib = w.permute(2, 1, 0).contiguous()
+            got = conv1d_im2col.conv1d_lrelu_im2col_cuda(x, w, b)
+            want = conv1d_im2col.conv1d_lrelu_im2col_plain(x, w, b)
+            cl = conv1d_fused.conv1d_lrelu_cuda(x_cl, w, b).transpose(1, 2)
+            lib = conv_library_ncl(x, w_lib, b)
+            torch.cuda.synchronize()
+            row = {"layer": name, "x": [B, cin, L], "K": K, "cin": cin,
+                   "cout": cout,
+                   "max_abs_err": (got - want).abs().max().item(),
+                   "channel_last_err": (got - cl).abs().max().item(),
+                   "library_err": (lib - want).abs().max().item()}
+            del got, want, cl, lib
+            for key, what in (("max_abs_err", "its plain version"),
+                              ("channel_last_err", "the channel-last kernel"),
+                              ("library_err", "the plain version (library)")):
+                if not row[key] <= CONV_ATOL:
+                    fail(f"conv1d_lrelu_im2col at {name}: {key} "
+                         f"{row[key]:.3e} against {what} (tol {CONV_ATOL})")
+            row["ms"] = time_cuda(
+                lambda: conv1d_im2col.conv1d_lrelu_im2col_cuda(x, w, b), torch)
+            row["plain_ms"] = time_cuda(
+                lambda: conv1d_im2col.conv1d_lrelu_im2col_plain(x, w, b),
+                torch)
+            row["library_ms"] = time_cuda(
+                lambda: conv_library_ncl(x, w_lib, b), torch)
+            row["conv1d_lrelu_ms"] = time_cuda(
+                lambda: conv1d_fused.conv1d_lrelu_cuda(x_cl, w, b), torch)
+            row["bound_ms"], row["bound_by"] = conv_bound(
+                x.numel(), K, cin, cout, B * (L - K + 1) * cout)
+            tool_rows.append(row)
+            print(f"im2col {name}: {json.dumps(row)}", flush=True)
+            del x, x_cl
+            torch.cuda.empty_cache()
+        launches_by_phase["im2col"] = conv1d_im2col.launches
+        tool_sum = {k: sum(r[k] for r in tool_rows)
+                    for k in ("ms", "plain_ms", "library_ms",
+                              "conv1d_lrelu_ms", "bound_ms")}
+        print(f"im2col over the {len(tool_rows)} tool shapes: "
+              f"{json.dumps(tool_sum)}", flush=True)
+
     with phase("serve"):
         sr = cfg.expected_sr
 
@@ -341,7 +487,7 @@ def main() -> int:
         torch.cuda.synchronize()
 
         n_chunks = 0
-        conv1d_fused.launches = interp.launches = 0
+        conv1d_fused.launches = interp.launches = conv1d_im2col.launches = 0
         served = []
         for audio in requests:
             n = audio.shape[0]
@@ -369,13 +515,16 @@ def main() -> int:
                   f"({', '.join(f'{w:.4f}' for w in walls)}), "
                   f"{n / sr / dt:.1f} audio-s/s", flush=True)
         launches = {"conv1d_lrelu": conv1d_fused.launches,
-                    "learned_interp": interp.launches}
+                    "learned_interp": interp.launches,
+                    "conv1d_lrelu_im2col": conv1d_im2col.launches}
         want = {"conv1d_lrelu": (2 * cfg.num_layers + 1) * n_chunks,
-                "learned_interp": cfg.num_layers * n_chunks}
+                "learned_interp": cfg.num_layers * n_chunks,
+                "conv1d_lrelu_im2col": 0}
         print(f"launches over {n_chunks} forward chunks: {launches} "
               f"(expected {want})", flush=True)
         if launches != want:
-            fail("the main path did not launch every kernel once per layer")
+            fail("the main path did not launch conv and interp once per "
+                 "layer and the im2col conv never")
         total_audio = sum(r["seconds"] for r in served)
         total_wall = sum(r["wall_s"] for r in served)
         print(f"served {total_audio:.1f} audio-s in {total_wall:.4f} s "
@@ -407,16 +556,21 @@ def main() -> int:
             fail("the served separation disagrees with the plain path")
 
     with phase("forward"):
-        forward_rows = forward_breakdown(model, conv1d_fused, interp, sep,
-                                         wins, torch)
+        conv1d_im2col.launches = 0
+        forward_rows = forward_breakdown(model, conv1d_fused, interp,
+                                         conv1d_im2col, sep, wins, torch)
+        launches_by_phase["forward"] = conv1d_im2col.launches
         conv = [r for r in forward_rows if r["kernel"] == "conv1d_lrelu"]
         ip = [r for r in forward_rows if r["kernel"] == "learned_interp"]
+        cm = [r for r in forward_rows if r["kernel"] == "conv1d_lrelu_im2col"]
         for r in forward_rows:
-            print(f"  {r['layer']:>10} {r['kernel']:<14} x {r['x']}: "
+            print(f"  {r['layer']:>10} {r['kernel']:<19} x {r['x']}: "
                   f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}), {r['flops'] / r['ms'] / 1e9:.2f} "
                   f"TFLOP/s; plain {r['plain_ms']:.4f} ms, library "
-                  f"{r['library_ms']:.4f} ms", flush=True)
+                  f"{r['library_ms']:.4f} ms"
+                  + (f"; alone {r['repeat_ms']:.4f} ms" if "repeat_ms" in r
+                     else ""), flush=True)
         total = forward_rows[0]["forward_ms"]
         conv_ms = sum(r["ms"] for r in conv)
         ip_ms = sum(r["ms"] for r in ip)
@@ -431,6 +585,11 @@ def main() -> int:
             "learned_interp_plain_ms": sum(r["plain_ms"] for r in ip),
             "learned_interp_library_ms": sum(r["library_ms"] for r in ip),
             "learned_interp_bound_ms": sum(r["bound_ms"] for r in ip),
+            # the same 25 convs, each alone on a warm cache (time_cuda)
+            "conv1d_lrelu_repeat_ms": sum(r["repeat_ms"] for r in conv),
+            "im2col_ms": sum(r["ms"] for r in cm),
+            "im2col_plain_ms": sum(r["plain_ms"] for r in cm),
+            "im2col_library_ms": sum(r["library_ms"] for r in cm),
             "conv1d_lrelu_gflop": flops / 1e9,
             "conv1d_lrelu_tflop_per_s": flops / conv_ms / 1e9,
             "audio_s_per_s": B * sep.out_len / sr / (total / 1e3),
@@ -458,7 +617,7 @@ def main() -> int:
         if not err3 <= SMALL_ATOL:
             fail("the card disagrees with the CPU path at a small width")
 
-    def entry(name, rows, source, replaces, n_launch):
+    def entry(name, rows, source, replaces, n_launch, **extra):
         fwd = [r for r in forward_rows if r["kernel"] == name]
         return {
             "name": name, "route": "cuda", "source": source,
@@ -477,6 +636,7 @@ def main() -> int:
                             "bound_ms": sum(r["bound_ms"] for r in fwd),
                             "plain_ms": sum(r["plain_ms"] for r in fwd),
                             "library_ms": sum(r["library_ms"] for r in fwd)},
+            **extra,
         }
 
     kernels = [
@@ -488,6 +648,15 @@ def main() -> int:
               "waveunet_tpu_torch/ops/kernels/csrc/learned_interp.cu",
               "waveunet_tpu/ops/pallas/interp.py:41",
               launches["learned_interp"]),
+        # its own path is phase "im2col" (the counterpart of
+        # tools/pallas_im2col_bench.py); the served requests launch it never
+        entry("conv1d_lrelu_im2col", im2col_rows,
+              "waveunet_tpu_torch/ops/kernels/csrc/conv1d_lrelu_im2col.cu",
+              "waveunet_tpu/ops/pallas/conv1d_im2col.py:44",
+              launches_by_phase["im2col"],
+              launches_by_phase=dict(launches_by_phase,
+                                     serve=launches["conv1d_lrelu_im2col"]),
+              tool_shapes=tool_rows, tool_sums=tool_sum),
     ]
     print(f"chip_smoke total: {time.perf_counter() - t_start:.3f} s "
           f"(after interpreter start)", flush=True)
@@ -499,12 +668,17 @@ def main() -> int:
     return 0
 
 
-def forward_breakdown(model, conv1d_fused, interp, sep, wins, torch):
+def forward_breakdown(model, conv1d_fused, interp, conv1d_im2col, sep, wins,
+                      torch):
     """Device time of each kernel launch in one forward of ``wins``, by CUDA
     events recorded around each call (no synchronise inside the forward),
     with each launch's FLOPs and bound, and the plain version and the
     library call timed afterwards on the same inputs; every row also carries
-    the whole forward's time."""
+    the whole forward's time. Each conv launch is followed by a row of the
+    channel-major im2col kernel on a copy of the same input (made outside
+    the timing), held against the conv's output and timed with its plain
+    version and the NCL library call; the conv row also carries the conv
+    kernel timed the same way alone (``repeat_ms``)."""
     calls = []
 
     def timed(fn, kernel):
@@ -537,13 +711,14 @@ def forward_breakdown(model, conv1d_fused, interp, sep, wins, torch):
     L = sep.cfg.num_layers
     names = ([f"down_{i}" for i in range(L)] + ["bottleneck"]
              + [n for i in range(L) for n in (f"interp_{i}", f"up_{i}")])
+    forward_ms = t0.elapsed_time(t1)
     rows = []
     for name, (kernel, x, w, rest, y, start, end) in zip(names, calls):
         if kernel == "conv1d_lrelu":
             K, cin, cout = w.shape
             flops = 2.0 * y.numel() * K * cin
-            nbytes = 4.0 * (x.shape[0] * x.shape[1] * cin + w.numel() + cout
-                            + y.numel())
+            b_ms, b_by = conv_bound(x.shape[0] * x.shape[1] * cin, K, cin,
+                                    cout, y.numel())
             b = rest[0]
             w_lib = w.permute(2, 1, 0).contiguous()
             plain_ms = time_cuda(
@@ -552,20 +727,50 @@ def forward_breakdown(model, conv1d_fused, interp, sep, wins, torch):
                                    0.1)
         else:
             flops = 3.0 * x.shape[0] * (x.shape[1] - 1) * x.shape[2]
-            nbytes = 4.0 * (x.numel() + w.numel() + y.numel())
+            b_ms, b_by = bound_ms(flops, 4.0 * (x.numel() + w.numel()
+                                                + y.numel()))
             context = rest[0]
             wt = interp_library_weights(w)
             plain_ms = time_cuda(
                 lambda: interp.learned_interp_plain(x, w, context), torch, 0.1)
             library_ms = time_cuda(lambda: interp_library(x, wt, context),
                                    torch, 0.1)
-        b_ms, b_by = bound_ms(flops, nbytes)
-        rows.append({"layer": name, "kernel": kernel, "x": list(x.shape),
-                     "ms": start.elapsed_time(end), "flops": flops,
-                     "bound_ms": b_ms, "bound_by": b_by,
-                     "plain_ms": plain_ms, "library_ms": library_ms,
-                     "forward_ms": t0.elapsed_time(t1)})
+        row = {"layer": name, "kernel": kernel, "x": list(x.shape),
+               "ms": start.elapsed_time(end), "flops": flops,
+               "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms,
+               "library_ms": library_ms, "forward_ms": forward_ms}
+        rows.append(row)
+        if kernel == "conv1d_lrelu":
+            rows.append(im2col_row(conv1d_im2col, row, x, w, b, w_lib, y,
+                                   torch))
+            row["repeat_ms"] = time_cuda(
+                lambda: conv1d_fused.conv1d_lrelu_cuda(x, w, b), torch, 0.1)
     return rows
+
+
+def im2col_row(conv1d_im2col, conv_row, x, w, b, w_lib, y, torch):
+    """The channel-major im2col kernel on a channel-major copy of one conv
+    launch's input x [B, L, Cin]: held against that launch's output y and
+    timed with its plain version and the NCL library call."""
+    x_cm = channel_major(x)
+    got = conv1d_im2col.conv1d_lrelu_im2col_cuda(x_cm, w, b)
+    torch.cuda.synchronize()
+    err = (got - y.transpose(1, 2)).abs().max().item()
+    del got
+    if not err <= CONV_ATOL:
+        fail(f"conv1d_lrelu_im2col at {conv_row['layer']} of the forward "
+             f"disagrees with conv1d_lrelu: {err:.3e} (tol {CONV_ATOL})")
+    row = dict(conv_row, kernel="conv1d_lrelu_im2col", x=list(x_cm.shape),
+               max_abs_err=err)
+    row["ms"] = time_cuda(
+        lambda: conv1d_im2col.conv1d_lrelu_im2col_cuda(x_cm, w, b), torch,
+        0.1)
+    row["plain_ms"] = time_cuda(
+        lambda: conv1d_im2col.conv1d_lrelu_im2col_plain(x_cm, w, b), torch,
+        0.1)
+    row["library_ms"] = time_cuda(lambda: conv_library_ncl(x_cm, w_lib, b),
+                                  torch, 0.1)
+    return row
 
 
 def request_breakdown(sep, audio, sr, torch):

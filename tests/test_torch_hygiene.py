@@ -70,7 +70,8 @@ def test_kernel_sources_include_no_pytorch_header():
     from waveunet_tpu_torch.ops.kernels import build
 
     names = sorted(os.path.basename(s) for s in build.sources())
-    assert names == ["conv1d_lrelu.cu", "learned_interp.cu"]
+    assert names == ["conv1d_lrelu.cu", "conv1d_lrelu_im2col.cu",
+                     "learned_interp.cu"]
     for src in build.sources():
         with open(src) as f:
             text = f.read()

@@ -21,7 +21,7 @@ from waveunet_tpu.ops.resample import resample as jax_resample
 from waveunet_tpu.ops.upsample import bilinear_x2 as jax_bilinear_x2
 
 from waveunet_tpu_torch.ops.conv import conv1d, precision_scope
-from waveunet_tpu_torch.ops.kernels import conv1d_fused, interp
+from waveunet_tpu_torch.ops.kernels import conv1d_fused, conv1d_im2col, interp
 from waveunet_tpu_torch.ops.primitives import crop
 from waveunet_tpu_torch.ops.resample import resample
 from waveunet_tpu_torch.ops.upsample import bilinear_x2
@@ -91,12 +91,15 @@ def test_conv_wrapper_reads_a_decimated_view(rng):
 @pytest.mark.parametrize("wrapper,args", [
     ("conv", lambda t: (t, torch.zeros(3, 2, 4), torch.zeros(4))),
     ("interp", lambda t: (t, torch.zeros(2), True)),
+    ("im2col", lambda t: (t.transpose(1, 2), torch.zeros(3, 2, 4),
+                          torch.zeros(4))),
 ])
 def test_cuda_entry_refuses_host_tensors(wrapper, args):
     """The launch path never takes a CPU tensor: it raises before building."""
     x = torch.zeros(1, 8, 2)
-    fn = (conv1d_fused.conv1d_lrelu_cuda if wrapper == "conv"
-          else interp.learned_interp_cuda)
+    fn = {"conv": conv1d_fused.conv1d_lrelu_cuda,
+          "interp": interp.learned_interp_cuda,
+          "im2col": conv1d_im2col.conv1d_lrelu_im2col_cuda}[wrapper]
     with pytest.raises(ValueError, match="CUDA"):
         fn(*args(x))
 
