@@ -9,10 +9,15 @@ checkout (audio and weights are made from a seed). Phases, each printing its
 wall seconds, each under a watchdog:
 
   1. the card's name and power limit, as nvidia-smi gives them;
-  2. build the CUDA kernels (one nvcc call, no PyTorch headers);
+  2. build the CUDA kernels (one nvcc process a source, all at once, then
+     one link; no PyTorch headers), printing ptxas's registers and spills;
   3. each kernel against its plain PyTorch version on the card, at the shapes
      the full_44KHz main path gives it (the channel-major im2col conv at the
-     channel-major counterparts of the conv's shapes);
+     channel-major counterparts of the conv's shapes), and the conv kernel
+     also at the edges of its launch plan (Cin 1, 3 and 34, K 1 to 16, Cout
+     1, 34 and 312, L_out 1 and 21 at B 16, B 1, a decimated view, with and
+     without split-K; each split shape run twice and compared bit for bit),
+     with each launch's plan and dynamic shared memory;
   4. each kernel timed with CUDA events beside its bound, its plain version
      and one PyTorch library call computing the same function (cuDNN
      conv1d + leaky_relu for the convs, a depthwise conv_transpose1d for the
@@ -36,7 +41,10 @@ wall seconds, each under a watchdog:
      conv kernel's output; each request's forward chunks timed
      on the device beside its wall time; and a small
      configuration served on the card and on the CPU (the plain path the
-     CPU tests hold against the JAX package), compared.
+     CPU tests hold against the JAX package), compared;
+  7. presets: every Wave-U-Net preset, shrunk to 4 layers with its own
+     filters and widths, serving a 1.5 s clip at infer_batch 4 on the card
+     and on the CPU (the plain path), compared.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Without a card, or run outside a
@@ -59,10 +67,13 @@ SEED = 1234
 
 # Per-phase watchdog limits in seconds; the whole run aims at under 5 min.
 LIMITS = {"nvidia-smi": 30, "build": 400, "kernels": 120, "timing": 180,
-          "im2col": 240, "serve": 420, "forward": 300}
+          "im2col": 240, "serve": 420, "forward": 300, "presets": 240}
 
-# Peaks of one H100 SXM (NVIDIA data sheet) for the bound: fp32 on the CUDA
-# cores (the kernels compute in fp32 without tensor cores) and HBM3.
+# Peaks of one H100 SXM (NVIDIA data sheet) for the bounds: dense TF32 on
+# the tensor cores (the conv kernel computes in 3xTF32: three TF32 products
+# per fp32 product), fp32 on the CUDA cores (the interpolation, and the
+# conv's earlier CUDA-core bound, kept beside the new one) and HBM3.
+PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -119,8 +130,8 @@ def time_cuda(fn, torch, min_s: float = 0.2, max_iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FP32_FLOPS
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    t_ops = flops / peak
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -154,10 +165,79 @@ def channel_major(x):
 
 
 def conv_bound(x_numel, K, cin, cout, y_numel):
-    """bound_ms of one conv launch: its FLOPs, and its bytes with each input
-    read once and the output written once."""
-    return bound_ms(2.0 * y_numel * K * cin,
-                    4.0 * (x_numel + K * cin * cout + cout + y_numel))
+    """The least time of one conv launch at fp32 accuracy: the larger of its
+    3xTF32 operations (3 x its FLOPs) over the dense TF32 peak and its bytes
+    (each input read once, the output written once) over HBM's rate; with
+    what bounds it, and the CUDA-core bound (FLOPs over the fp32 peak, or
+    the bytes) that the earlier fp32 kernels were measured against."""
+    flops = 2.0 * y_numel * K * cin
+    nbytes = 4.0 * (x_numel + K * cin * cout + cout + y_numel)
+    ms, by = bound_ms(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
+    return ms, by, bound_ms(flops, nbytes)[0]
+
+
+# The conv kernel at the edges of its launch plan: name, B, L_out, Cin,
+# Cout, K, decimated view. Cin 1 and 3 and 34 stage rows 4 or 8 bytes at a
+# time; Cin 2 and 6 with rows back to back take the flat reduction.
+CONV_EDGES = [
+    ("cin1_k15", 16, 300, 1, 24, 15, False),
+    ("cin3_k5_cout34", 4, 500, 3, 34, 5, False),
+    ("cin34_k1_cout34", 4, 400, 34, 34, 1, False),
+    ("cin6_k16_flat", 3, 1000, 6, 48, 16, False),
+    ("cout1_k16", 2, 333, 24, 1, 16, False),
+    ("cout312_b1_view", 1, 777, 48, 312, 15, True),
+    ("lout1_b16", 16, 1, 288, 312, 15, True),
+    ("lout21_b16", 16, 21, 600, 288, 5, False),
+]
+
+
+def conv_edges(conv1d_fused, randn, conv_params, conv_shapes, B, torch):
+    """The conv kernel against its plain version (CONV_ATOL) at CONV_EDGES
+    and at the main-path shapes, each with its launch plan and both
+    versions' distance from an fp64 evaluation of the same sum; every shape
+    whose plan splits the reduction is launched twice and must give the
+    same bits. At least one shape with and one without a split must be
+    among them."""
+    cases = list(CONV_EDGES) + [
+        (name, B, L - K + 1, cin, cout, K, dec)
+        for name, L, K, cin, cout, dec in conv_shapes]
+    rows, split_seen = [], set()
+    for name, Bx, L_out, cin, cout, K, dec in cases:
+        L = L_out + K - 1
+        full = randn(Bx, 2 * L - 1 if dec else L, cin)
+        x = full[:, ::2, :] if dec else full
+        w, b = conv_params(K, cin, cout)
+        plan = conv1d_fused.plan_launch(Bx, L_out, cin, cout, K, x.stride(1))
+        got = conv1d_fused.conv1d_lrelu_cuda(x, w, b)
+        want = conv1d_fused.conv1d_lrelu_plain(x, w, b)
+        again = (conv1d_fused.conv1d_lrelu_cuda(x, w, b)
+                 if plan.splits > 1 else got)
+        exact = conv1d_fused.conv1d_lrelu_plain(x.double(), w.double(),
+                                                b.double())
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        same = torch.equal(got, again)
+        row = {"shape": name, "x": list(x.shape), "K": K, "cin": cin,
+               "cout": cout, "decimated": dec, "max_abs_err": err,
+               # both fp32 versions against the same sum in fp64
+               "err_vs_fp64": (got - exact).abs().max().item(),
+               "plain_err_vs_fp64": (want - exact).abs().max().item(),
+               "tile_n": plan.tile_n, "tile_m": plan.tile_m,
+               "flat": plan.flat, "splits": plan.splits, "grid": plan.grid,
+               "smem_bytes": plan.smem_bytes, "bitwise_repeat": same}
+        print(f"conv1d_lrelu edge {json.dumps(row)} (tol {CONV_ATOL})",
+              flush=True)
+        if not err <= CONV_ATOL:
+            fail(f"conv1d_lrelu at {name} disagrees with its plain version")
+        if not same:
+            fail(f"conv1d_lrelu at {name} (split {plan.splits}) gave other "
+                 f"bits on a second run")
+        split_seen.add(plan.splits > 1)
+        rows.append(row)
+        del full, x, got, want, again, exact
+    if split_seen != {True, False}:
+        fail("the edge shapes did not cover both a split and an unsplit plan")
+    return rows
 
 
 def im2col_tool_shapes(cfg, in_len):
@@ -268,11 +348,13 @@ def main() -> int:
         built = build.build()
         build.load()
         if built.seconds is not None:
-            print(f"build: one nvcc call over "
+            print(f"build: one nvcc process a source, all at once, and one "
+                  f"link, over "
                   f"{[os.path.basename(s) for s in build.sources()]}: "
                   f"{built.seconds:.3f} s", flush=True)
             for line in built.log.splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "Compiling entry" in line):
                     print(f"  ptxas: {line.strip()}")
         else:
             print("build: library already built (hash unchanged)")
@@ -320,6 +402,8 @@ def main() -> int:
                 fail(f"the library conv at {name} disagrees with the plain "
                      f"version")
             conv_cases.append((name, x, w, b, w_lib, err))
+        edge_rows = conv_edges(conv1d_fused, randn, conv_params, conv_shapes,
+                               B, torch)
         for name, L, K, cin, cout, decimated in conv_shapes:
             # channel-major; a decimated layer reads x[:, :, ::2] of a map
             full = randn(B, cin, 2 * L - 1 if decimated else L)
@@ -382,7 +466,8 @@ def main() -> int:
                 "library_ms": time_cuda(lambda: conv_library(x, w_lib, b),
                                         torch),
             }
-            row["bound_ms"], row["bound_by"] = conv_bound(
+            (row["bound_ms"], row["bound_by"],
+             row["bound_fp32_cores_ms"]) = conv_bound(
                 Bx * L * cin, K, cin, cout, Bx * L_out * cout)
             conv_rows.append(row)
             print(f"time conv1d_lrelu {name}: {json.dumps(row)}", flush=True)
@@ -400,7 +485,8 @@ def main() -> int:
                 "library_ms": time_cuda(lambda: conv_library_ncl(x, w_lib, b),
                                         torch),
             }
-            row["bound_ms"], row["bound_by"] = conv_bound(
+            (row["bound_ms"], row["bound_by"],
+             row["bound_fp32_cores_ms"]) = conv_bound(
                 Bx * L * cin, K, cin, cout, Bx * (L - K + 1) * cout)
             im2col_rows.append(row)
             print(f"time conv1d_lrelu_im2col {name}: {json.dumps(row)}",
@@ -460,7 +546,8 @@ def main() -> int:
                 lambda: conv_library_ncl(x, w_lib, b), torch)
             row["conv1d_lrelu_ms"] = time_cuda(
                 lambda: conv1d_fused.conv1d_lrelu_cuda(x_cl, w, b), torch)
-            row["bound_ms"], row["bound_by"] = conv_bound(
+            (row["bound_ms"], row["bound_by"],
+             row["bound_fp32_cores_ms"]) = conv_bound(
                 x.numel(), K, cin, cout, B * (L - K + 1) * cout)
             tool_rows.append(row)
             print(f"im2col {name}: {json.dumps(row)}", flush=True)
@@ -570,7 +657,16 @@ def main() -> int:
                   f"TFLOP/s; plain {r['plain_ms']:.4f} ms, library "
                   f"{r['library_ms']:.4f} ms"
                   + (f"; alone {r['repeat_ms']:.4f} ms" if "repeat_ms" in r
+                     else "")
+                  + (f"; plan {json.dumps(r['plan'])}" if "plan" in r
                      else ""), flush=True)
+        smem = {}
+        for r in conv:
+            tn = r["plan"]["tile_n"]
+            smem[tn] = max(smem.get(tn, 0), r["plan"]["smem_bytes"])
+        print(f"conv1d_lrelu dynamic shared memory by instantiation (tile_n: "
+              f"most bytes over the forward's launches): {json.dumps(smem)}",
+              flush=True)
         total = forward_rows[0]["forward_ms"]
         conv_ms = sum(r["ms"] for r in conv)
         ip_ms = sum(r["ms"] for r in ip)
@@ -580,6 +676,8 @@ def main() -> int:
             "learned_interp_ms": ip_ms,
             "other_ms": total - conv_ms - ip_ms,
             "conv1d_lrelu_bound_ms": sum(r["bound_ms"] for r in conv),
+            "conv1d_lrelu_bound_fp32_cores_ms": sum(r["bound_fp32_cores_ms"]
+                                                    for r in conv),
             "conv1d_lrelu_plain_ms": sum(r["plain_ms"] for r in conv),
             "conv1d_lrelu_library_ms": sum(r["library_ms"] for r in conv),
             "learned_interp_plain_ms": sum(r["plain_ms"] for r in ip),
@@ -617,6 +715,10 @@ def main() -> int:
         if not err3 <= SMALL_ATOL:
             fail("the card disagrees with the CPU path at a small width")
 
+    with phase("presets"):
+        preset_rows = serve_presets(get_config, model, Separator,
+                                    conv1d_fused, interp, np, torch)
+
     def entry(name, rows, source, replaces, n_launch, **extra):
         fwd = [r for r in forward_rows if r["kernel"] == name]
         return {
@@ -629,11 +731,18 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in rows),
             "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": sum(r["library_ms"] for r in rows),
+            **({"bound_fp32_cores_ms": sum(r["bound_fp32_cores_ms"]
+                                           for r in rows)}
+               if "bound_fp32_cores_ms" in rows[0] else {}),
             "shapes": rows,
             # every launch of one 16-window forward (phase "forward")
             "per_forward": {"launches": len(fwd),
                             "ms": sum(r["ms"] for r in fwd),
                             "bound_ms": sum(r["bound_ms"] for r in fwd),
+                            **({"bound_fp32_cores_ms": sum(
+                                r["bound_fp32_cores_ms"] for r in fwd)}
+                               if fwd and "bound_fp32_cores_ms" in fwd[0]
+                               else {}),
                             "plain_ms": sum(r["plain_ms"] for r in fwd),
                             "library_ms": sum(r["library_ms"] for r in fwd)},
             **extra,
@@ -643,7 +752,7 @@ def main() -> int:
         entry("conv1d_lrelu", conv_rows,
               "waveunet_tpu_torch/ops/kernels/csrc/conv1d_lrelu.cu",
               "waveunet_tpu/ops/pallas/conv1d_fused.py:49",
-              launches["conv1d_lrelu"]),
+              launches["conv1d_lrelu"], edge_shapes=edge_rows),
         entry("learned_interp", interp_rows,
               "waveunet_tpu_torch/ops/kernels/csrc/learned_interp.cu",
               "waveunet_tpu/ops/pallas/interp.py:41",
@@ -661,11 +770,63 @@ def main() -> int:
     print(f"chip_smoke total: {time.perf_counter() - t_start:.3f} s "
           f"(after interpreter start)", flush=True)
     print(f"served: {json.dumps(served)}", flush=True)
+    print(f"presets: {json.dumps(preset_rows)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# Every Wave-U-Net preset of the repo (the spectrogram U-Nets are not
+# ported), served shrunk to 4 layers with its own filters and widths.
+WAVEUNET_PRESETS = ("baseline", "baseline_diff", "baseline_context",
+                    "baseline_stereo", "full", "full_44KHz",
+                    "baseline_context_smallfilter_deep",
+                    "full_multi_instrument", "baseline_comparison")
+
+
+def serve_presets(get_config, model, Separator, conv1d_fused, interp, np,
+                  torch):
+    """Each preset at 4 layers and infer_batch 4 serves a 1.5 s stereo clip
+    at its own rate through the kernels on the card and through the plain
+    path on the CPU, with the same seeded weights; the two must agree within
+    SMALL_ATOL, and the card's run must have launched the conv kernel (and
+    the interpolation kernel where the preset learns its upsampling). This
+    runs mono input, same padding, even widths, K = 1 merge convs, bilinear
+    upsampling, four sources and Cout 34 through the conv kernel."""
+    rows = []
+    for i, name in enumerate(WAVEUNET_PRESETS):
+        cfg = get_config(name, num_layers=4, infer_batch=4)
+        params = model.init_waveunet(torch.Generator().manual_seed(SEED + i),
+                                     cfg, "cpu")
+        sr = cfg.expected_sr
+        t = np.arange(int(1.5 * sr)) / sr
+        audio = (0.3 * np.sin(2 * np.pi * 220.0 * t)[:, None]
+                 + 0.1 * np.random.default_rng(SEED + i).standard_normal(
+                     (t.size, 2))).astype(np.float32)
+        conv1d_fused.launches = interp.launches = 0
+        on_card = Separator(cfg, params).separate(audio, sr)
+        n_conv, n_interp = conv1d_fused.launches, interp.launches
+        on_cpu = Separator(cfg, params, device="cpu").separate(audio, sr)
+        err = max(float(np.abs(on_card[k] - on_cpu[k]).max())
+                  for k in on_cpu)
+        row = {"preset": name, "filters": cfg.num_initial_filters,
+               "filter_size": cfg.filter_size,
+               "merge_filter_size": cfg.merge_filter_size,
+               "context": cfg.context, "upsampling": cfg.upsampling,
+               "channels": cfg.num_channels, "sources": len(on_card),
+               "conv_launches": n_conv, "interp_launches": n_interp,
+               "max_abs_err": err}
+        print(f"preset {json.dumps(row)} (tol {SMALL_ATOL})", flush=True)
+        if not err <= SMALL_ATOL:
+            fail(f"preset {name}: the card disagrees with the CPU path")
+        learned = cfg.upsampling == "learned"
+        if n_conv == 0 or (n_interp > 0) != learned:
+            fail(f"preset {name}: the card run did not go through the "
+                 f"kernels ({n_conv} conv, {n_interp} interp launches)")
+        rows.append(row)
+    return rows
 
 
 def forward_breakdown(model, conv1d_fused, interp, conv1d_im2col, sep, wins,
@@ -717,8 +878,8 @@ def forward_breakdown(model, conv1d_fused, interp, conv1d_im2col, sep, wins,
         if kernel == "conv1d_lrelu":
             K, cin, cout = w.shape
             flops = 2.0 * y.numel() * K * cin
-            b_ms, b_by = conv_bound(x.shape[0] * x.shape[1] * cin, K, cin,
-                                    cout, y.numel())
+            b_ms, b_by, cores_ms = conv_bound(x.shape[0] * x.shape[1] * cin,
+                                              K, cin, cout, y.numel())
             b = rest[0]
             w_lib = w.permute(2, 1, 0).contiguous()
             plain_ms = time_cuda(
@@ -741,6 +902,11 @@ def forward_breakdown(model, conv1d_fused, interp, conv1d_im2col, sep, wins,
                "library_ms": library_ms, "forward_ms": forward_ms}
         rows.append(row)
         if kernel == "conv1d_lrelu":
+            row["bound_fp32_cores_ms"] = cores_ms
+            plan = conv1d_fused.plan_launch(x.shape[0], y.shape[1], cin, cout,
+                                            K, x.stride(1))
+            row["plan"] = {"tile_n": plan.tile_n, "splits": plan.splits,
+                           "grid": plan.grid, "smem_bytes": plan.smem_bytes}
             rows.append(im2col_row(conv1d_im2col, row, x, w, b, w_lib, y,
                                    torch))
             row["repeat_ms"] = time_cuda(
@@ -762,6 +928,7 @@ def im2col_row(conv1d_im2col, conv_row, x, w, b, w_lib, y, torch):
              f"disagrees with conv1d_lrelu: {err:.3e} (tol {CONV_ATOL})")
     row = dict(conv_row, kernel="conv1d_lrelu_im2col", x=list(x_cm.shape),
                max_abs_err=err)
+    row.pop("plan", None)
     row["ms"] = time_cuda(
         lambda: conv1d_im2col.conv1d_lrelu_im2col_cuda(x_cm, w, b), torch,
         0.1)

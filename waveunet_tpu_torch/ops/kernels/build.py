@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source goes through ONE ``nvcc`` call into one shared
-library with a plain C interface, loaded with ``ctypes``. The sources include
-no PyTorch header, so the build takes seconds (a source that includes
-``torch/extension.h`` takes minutes to compile), and it needs nothing but the
-CUDA toolkit: no ninja, no PyTorch build machinery.
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked by one more ``nvcc`` call into
+one shared library with a plain C interface, loaded with ``ctypes``. The
+sources include no PyTorch header, so the build takes seconds (a source that
+includes ``torch/extension.h`` takes minutes to compile), and it needs
+nothing but the CUDA toolkit: no ninja, no PyTorch build machinery.
 
 The library lands in ``_build/`` beside this file (listed in ``.gitignore``)
 under a name that carries a hash of the sources and flags: a changed source
@@ -27,8 +28,10 @@ from typing import NamedTuple, Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -58,7 +61,7 @@ def sources():
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in sources():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
@@ -68,10 +71,12 @@ def library_path() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # x, w, bias, y, B, L_out, Cin, Cout, K, x batch stride, x time stride,
-    # stream
-    lib.conv1d_lrelu_f32.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                                     i64, i64, vp]
+    # x, w, bias, y, split workspace (or null), B, L_out, Cin, Cout, K,
+    # x batch stride, x time stride, then conv1d_fused.plan_launch's tile_m,
+    # tile_n, flat, splits, chunks_per_split, slab_rows, smem_bytes; stream
+    lib.conv1d_lrelu_f32.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                     i32, i64, i64, i32, i32, i32, i32, i32,
+                                     i32, i32, vp]
     lib.conv1d_lrelu_f32.restype = i32
     # x, w2t (= w [K, Cin, Cout] as [K*Cin, Cout]), bias, y, B, L_out, Cin,
     # Cout, K, x batch, channel and time strides, stream
@@ -85,23 +90,49 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cuda_error_string.restype = ctypes.c_char_p
 
 
+def _run(cmds, what):
+    """Run the commands together; raise with the output of the first that
+    fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:  # a timeout or an interrupt leaves no compiler running
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}) {what}:\n"
+                               f"{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 def build() -> Built:
-    """Compile the library if its hashed file is missing."""
+    """Compile the library if its hashed file is missing: one nvcc process
+    a source, all at once, then one link."""
     path = library_path()
     if os.path.exists(path):
         return Built(path, None, "")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            for src in sources()]
+    tmp = f"{path}.{tag}"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
-    return Built(path, time.perf_counter() - t0, res.stdout + res.stderr)
+    try:
+        log = _run([[nvcc, *COMPILE_FLAGS, "-c", "-o", obj, src]
+                    for src, obj in zip(sources(), objs)], "compiling")
+        log += _run([[nvcc, *LINK_FLAGS, "-o", tmp, *objs]], "linking")
+        os.replace(tmp, path)  # atomic: a concurrent loader never sees half
+    finally:
+        for f in (*objs, tmp):
+            if os.path.exists(f):
+                os.unlink(f)
+    return Built(path, time.perf_counter() - t0, log)
 
 
 def load() -> ctypes.CDLL:
