@@ -13,11 +13,14 @@ wall seconds, each under a watchdog:
      one link; no PyTorch headers), printing ptxas's registers and spills;
   3. each kernel against its plain PyTorch version on the card, at the shapes
      the full_44KHz main path gives it (the channel-major im2col conv at the
-     channel-major counterparts of the conv's shapes), and the conv kernel
-     also at the edges of its launch plan (Cin 1, 3 and 34, K 1 to 16, Cout
+     channel-major counterparts of the conv's shapes), and both convs also
+     at the edges of their launch plans (Cin 1, 3 and 34, K 1 to 16, Cout
      1, 34 and 312, L_out 1 and 21 at B 16, B 1, a decimated view, with and
-     without split-K; each split shape run twice and compared bit for bit),
-     with each launch's plan and dynamic shared memory;
+     without split-K; each split shape run twice and compared bit for bit;
+     the im2col conv also at rows of 0 and 3 mod 4 floats), with each
+     launch's plan and dynamic shared memory and each version's distance
+     from an fp64 evaluation (the im2col kernel's at most twice the plain
+     version's);
   4. each kernel timed with CUDA events beside its bound, its plain version
      and one PyTorch library call computing the same function (cuDNN
      conv1d + leaky_relu for the convs, a depthwise conv_transpose1d for the
@@ -25,9 +28,10 @@ wall seconds, each under a watchdog:
   4a. im2col: the counterpart of tools/pallas_im2col_bench.py, the entry
      point of the channel-major im2col conv kernel: the 12 down-path conv
      shapes of full_44KHz at the training window (16,384 frames, input
-     147,443) and batch 16, each held against the plain version and against
-     the channel-last conv kernel, and timed beside its bound, the plain
-     version, cuDNN and the channel-last kernel;
+     147,443) and batch 16, each held against the plain version (with its
+     plan, its distance from fp64 and a bitwise repeat of split plans) and
+     against the channel-last conv kernel, and timed beside its bound, the
+     plain version, cuDNN and the channel-last kernel;
   5. serve full_44KHz at full width (12 layers, 24 filters, 65,536-frame
      window, batch 16, seeded random weights): three separate() requests of
      synthesised stereo 44.1 kHz clips (2 s, 10 s, 30 s), each served three
@@ -240,6 +244,94 @@ def conv_edges(conv1d_fused, randn, conv_params, conv_shapes, B, torch):
     return rows
 
 
+# The im2col conv kernel at the edges of its launch plan: name, B, L_out,
+# Cin, Cout, K, decimated view. Cin 1 and 3 take the flat reduction, 34 a
+# ragged 8-channel chunk; input rows of length 1024 and 1023 (0 and 3 mod 4).
+IM2COL_EDGES = [
+    ("cin1_k15", 16, 300, 1, 24, 15, False),
+    ("cin3_k5_cout34", 4, 500, 3, 34, 5, False),
+    ("cin34_k1_cout34", 4, 400, 34, 34, 1, False),
+    ("cout1_k16", 2, 333, 24, 1, 16, False),
+    ("cout312_b1_view", 1, 777, 48, 312, 15, True),
+    ("lout1_b16", 16, 1, 288, 312, 15, True),
+    ("lout21_b16", 16, 21, 600, 288, 5, False),
+    ("len1024_cout72", 2, 1010, 40, 72, 15, False),
+    ("len1023_cout96", 2, 1009, 40, 96, 15, False),
+]
+
+
+def im2col_plan(plan):
+    """The launch-plan fields chip_smoke.py prints for the im2col kernel."""
+    return {"tile_m": plan.tile_m, "tile_n": plan.tile_n, "flat": plan.flat,
+            "taps": plan.taps, "chunks": plan.chunks, "splits": plan.splits,
+            "grid": plan.grid, "smem_bytes": plan.smem_bytes}
+
+
+def im2col_check(conv1d_im2col, name, x, w, b, torch, got=None,
+                 plain=None):
+    """The im2col kernel against its plain version (CONV_ATOL) on one input,
+    with both versions' distance from an fp64 evaluation of the same sum;
+    the kernel's may be at most twice the plain version's. A plan that
+    splits the reduction is launched twice and must give the same bits.
+    Returns the row of numbers (got, plain: the kernel's and the plain
+    version's outputs, when the caller has them)."""
+    Bx, cin, L = x.shape
+    K, _, cout = w.shape
+    plan = conv1d_im2col.plan_launch(Bx, L - K + 1, cin, cout, K)
+    if got is None:
+        got = conv1d_im2col.conv1d_lrelu_im2col_cuda(x, w, b)
+    want = (plain if plain is not None
+            else conv1d_im2col.conv1d_lrelu_im2col_plain(x, w, b))
+    again = (conv1d_im2col.conv1d_lrelu_im2col_cuda(x, w, b)
+             if plan.splits > 1 else got)
+    exact = conv1d_im2col.conv1d_lrelu_im2col_plain(x.double(), w.double(),
+                                                    b.double())
+    torch.cuda.synchronize()
+    row = {"max_abs_err": (got - want).abs().max().item(),
+           # both fp32 versions against the same sum in fp64
+           "err_vs_fp64": (got - exact).abs().max().item(),
+           "plain_err_vs_fp64": (want - exact).abs().max().item(),
+           "bitwise_repeat": torch.equal(got, again),
+           "plan": im2col_plan(plan)}
+    del got, want, again, exact
+    if not row["max_abs_err"] <= CONV_ATOL:
+        fail(f"conv1d_lrelu_im2col at {name} disagrees with its plain "
+             f"version: {row['max_abs_err']:.3e} (tol {CONV_ATOL})")
+    if not row["bitwise_repeat"]:
+        fail(f"conv1d_lrelu_im2col at {name} (split {plan.splits}) gave "
+             f"other bits on a second run")
+    if not row["err_vs_fp64"] <= 2 * row["plain_err_vs_fp64"]:
+        fail(f"conv1d_lrelu_im2col at {name}: {row['err_vs_fp64']:.3e} from "
+             f"fp64, more than twice the plain version's "
+             f"{row['plain_err_vs_fp64']:.3e}")
+    return row
+
+
+def im2col_edges(conv1d_im2col, randn, conv_params, torch):
+    """The im2col kernel at IM2COL_EDGES (im2col_check), each printed with
+    its launch plan. At least one shape with and one without a split, and
+    one flat plan, must be among them."""
+    rows, seen = [], set()
+    for name, Bx, L_out, cin, cout, K, dec in IM2COL_EDGES:
+        L = L_out + K - 1
+        full = randn(Bx, cin, 2 * L - 1 if dec else L)
+        x = full[:, :, ::2] if dec else full
+        w, b = conv_params(K, cin, cout)
+        row = {"shape": name, "x": list(x.shape), "K": K, "cin": cin,
+               "cout": cout, "decimated": dec,
+               **im2col_check(conv1d_im2col, name, x, w, b, torch)}
+        print(f"conv1d_lrelu_im2col edge {json.dumps(row)} (tol "
+              f"{CONV_ATOL})", flush=True)
+        seen |= {("split", row["plan"]["splits"] > 1),
+                 ("flat", row["plan"]["flat"])}
+        rows.append(row)
+        del full, x
+    if not {("split", True), ("split", False), ("flat", True)} <= seen:
+        fail("the im2col edge shapes did not cover a split, an unsplit and "
+             "a flat plan")
+    return rows
+
+
 def im2col_tool_shapes(cfg, in_len):
     """The down-path conv shapes of tools/pallas_im2col_bench.py: name, input
     length, K, Cin, Cout for each layer, from the input length in_len."""
@@ -429,6 +521,8 @@ def main() -> int:
                      f"plain version")
             im2col_cases.append((name, x, w, b, w_lib, err))
             del got, want
+        im2col_edge_rows = im2col_edges(conv1d_im2col, randn, conv_params,
+                                        torch)
         for name, n, C in interp_shapes:
             x = randn(B, n, C)
             w = randn(C)
@@ -513,26 +607,31 @@ def main() -> int:
 
     tool_rows = []
     with phase("im2col"):
-        conv1d_im2col.launches = 0
+        # the count of this path's run: one launch per tool shape, read
+        # around it; the checks' and timings' launches are left out
+        conv1d_im2col.launches = driven = 0
         tool_in_len, _ = shapes.get_padding(cfg, cfg.num_frames)
         for name, L, K, cin, cout in im2col_tool_shapes(cfg, tool_in_len):
             x = randn(B, cin, L)
             w, b = conv_params(K, cin, cout)
             x_cl = x.transpose(1, 2).contiguous()  # the channel-last kernel's
             w_lib = w.permute(2, 1, 0).contiguous()
+            before = conv1d_im2col.launches
             got = conv1d_im2col.conv1d_lrelu_im2col_cuda(x, w, b)
+            driven += conv1d_im2col.launches - before
             want = conv1d_im2col.conv1d_lrelu_im2col_plain(x, w, b)
             cl = conv1d_fused.conv1d_lrelu_cuda(x_cl, w, b).transpose(1, 2)
             lib = conv_library_ncl(x, w_lib, b)
             torch.cuda.synchronize()
             row = {"layer": name, "x": [B, cin, L], "K": K, "cin": cin,
                    "cout": cout,
-                   "max_abs_err": (got - want).abs().max().item(),
                    "channel_last_err": (got - cl).abs().max().item(),
                    "library_err": (lib - want).abs().max().item()}
-            del got, want, cl, lib
-            for key, what in (("max_abs_err", "its plain version"),
-                              ("channel_last_err", "the channel-last kernel"),
+            del cl, lib
+            row.update(im2col_check(conv1d_im2col, name, x, w, b, torch,
+                                    got=got, plain=want))
+            del got, want
+            for key, what in (("channel_last_err", "the channel-last kernel"),
                               ("library_err", "the plain version (library)")):
                 if not row[key] <= CONV_ATOL:
                     fail(f"conv1d_lrelu_im2col at {name}: {key} "
@@ -553,7 +652,12 @@ def main() -> int:
             print(f"im2col {name}: {json.dumps(row)}", flush=True)
             del x, x_cl
             torch.cuda.empty_cache()
-        launches_by_phase["im2col"] = conv1d_im2col.launches
+        if driven != len(tool_rows):
+            fail(f"phase im2col launched the im2col kernel {driven} times "
+                 f"over {len(tool_rows)} shapes")
+        launches_by_phase["im2col"] = driven
+        launches_by_phase["im2col_with_checks_and_timing"] = (
+            conv1d_im2col.launches)
         tool_sum = {k: sum(r[k] for r in tool_rows)
                     for k in ("ms", "plain_ms", "library_ms",
                               "conv1d_lrelu_ms", "bound_ms")}
@@ -765,7 +869,8 @@ def main() -> int:
               launches_by_phase["im2col"],
               launches_by_phase=dict(launches_by_phase,
                                      serve=launches["conv1d_lrelu_im2col"]),
-              tool_shapes=tool_rows, tool_sums=tool_sum),
+              edge_shapes=im2col_edge_rows, tool_shapes=tool_rows,
+              tool_sums=tool_sum),
     ]
     print(f"chip_smoke total: {time.perf_counter() - t_start:.3f} s "
           f"(after interpreter start)", flush=True)
@@ -926,9 +1031,11 @@ def im2col_row(conv1d_im2col, conv_row, x, w, b, w_lib, y, torch):
     if not err <= CONV_ATOL:
         fail(f"conv1d_lrelu_im2col at {conv_row['layer']} of the forward "
              f"disagrees with conv1d_lrelu: {err:.3e} (tol {CONV_ATOL})")
+    B, cin, L = x_cm.shape
+    K, _, cout = w.shape
     row = dict(conv_row, kernel="conv1d_lrelu_im2col", x=list(x_cm.shape),
-               max_abs_err=err)
-    row.pop("plan", None)
+               max_abs_err=err, plan=im2col_plan(conv1d_im2col.plan_launch(
+                   B, L - K + 1, cin, cout, K)))
     row["ms"] = time_cuda(
         lambda: conv1d_im2col.conv1d_lrelu_im2col_cuda(x_cm, w, b), torch,
         0.1)

@@ -78,10 +78,14 @@ def _declare(lib: ctypes.CDLL) -> None:
                                      i32, i64, i64, i32, i32, i32, i32, i32,
                                      i32, i32, vp]
     lib.conv1d_lrelu_f32.restype = i32
-    # x, w2t (= w [K, Cin, Cout] as [K*Cin, Cout]), bias, y, B, L_out, Cin,
-    # Cout, K, x batch, channel and time strides, stream
-    lib.conv1d_lrelu_im2col_f32.argtypes = [vp, vp, vp, vp, i32, i32, i32,
-                                            i32, i32, i64, i64, i64, vp]
+    # x, w, bias, y, prepared-weight scratch, split workspace (or null), B,
+    # L_out, Cin, Cout, K, x batch, channel and time strides, then
+    # conv1d_im2col.plan_launch's tile_m, tile_n, flat, taps,
+    # splits, chunks_per_split, slab_rows, row, smem_bytes; stream
+    lib.conv1d_lrelu_im2col_f32.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32,
+                                            i32, i32, i32, i64, i64, i64,
+                                            i32, i32, i32, i32, i32, i32,
+                                            i32, i32, i32, vp]
     lib.conv1d_lrelu_im2col_f32.restype = i32
     # x, w, y, B, n, C, context, stream
     lib.learned_interp_f32.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
