@@ -48,7 +48,25 @@ wall seconds, each under a watchdog:
      CPU tests hold against the JAX package), compared;
   7. presets: every Wave-U-Net preset, shrunk to 4 layers with its own
      filters and widths, serving a 1.5 s clip at infer_batch 4 on the card
-     and on the CPU (the plain path), compared.
+     and on the CPU (the plain path), compared;
+  8. sweep: the bench's resident sweep (full_44KHz, 65,536-frame window,
+     batch 16, the 60 s bench song) on both wires, eager and as one CUDA
+     graph (identical bit for bit), against separate() on the card, timed,
+     its kernel launches counted from the graph's replays;
+  9. graphs: precompile() on the served engine, then the three requests
+     again through the CUDA graphs and pinned copies, identical bit for bit
+     to the eager run; walls, device time and idle share beside the eager
+     requests';
+  10. spectro: U7 at full width separating 30 s on the card and on the CPU,
+     compared, and through its CUDA graphs (bit for bit);
+  11. stream: full_44KHz streamed in uneven pushes, against the offline
+     output on the card, and batched drains against serial ones;
+  12. bench: the port's bench (waveunet_tpu_torch/bench.py) at its
+     REPS_MIN e2e pairs, its JSON line checked key by key.
+
+Each of the paths of phases 5 and 8 to 12 is driven with the kernels'
+launch counts set to 0 just before it and read just after (a graph replay
+adds the launches its capture recorded).
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Without a card, or run outside a
@@ -69,9 +87,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234
 
-# Per-phase watchdog limits in seconds; the whole run aims at under 5 min.
+# Per-phase watchdog limits in seconds; the whole run aims at under 10 min.
 LIMITS = {"nvidia-smi": 30, "build": 400, "kernels": 120, "timing": 180,
-          "im2col": 240, "serve": 420, "forward": 300, "presets": 240}
+          "im2col": 240, "serve": 420, "forward": 300, "presets": 240,
+          "sweep": 240, "graphs": 240, "spectro": 300, "stream": 240,
+          "m6": 120, "bench": 420}
 
 # Peaks of one H100 SXM (NVIDIA data sheet) for the bounds: dense TF32 on
 # the tensor cores (the conv kernel computes in 3xTF32: three TF32 products
@@ -87,6 +107,14 @@ INTERP_LIB_ATOL = 1e-5  # cuDNN may fuse the two products (one rounding less)
 FORWARD_ATOL = 1e-4  # 25 conv layers of such sums, then tanh
 SMALL_ATOL = 2e-5    # the CPU tests' forward tolerance, at a small width
 REPEATS = 3          # each request is served this many times; median wall
+SWEEP_ATOL = 2e-6    # sweep vs separate, conv sources (tests/test_infer.py)
+SWEEP_DIFF_ATOL = 4e-5  # the int16 difference source: mix quantised or not
+SPECTRO_ATOL = 5e-5  # U7 on the card vs the CPU path (tests/test_compat.py)
+STREAM_ATOL = 1e-5   # stream vs offline (tests/test_streaming.py)
+STREAM_BATCH_ATOL = 1e-6  # batched vs serial drains where conv plans differ
+BENCH_REPS_MIN = 14  # the bench's REPS_MIN
+WIRE_STEP = 1.0 / 32767  # one int16 step: two outputs within a tolerance
+                         # of each other may round to neighbouring steps
 
 
 def fail(msg: str, code: int = 1) -> None:
@@ -418,6 +446,7 @@ def main() -> int:
     from waveunet_tpu_torch.infer.engine import Separator, window_positions
     from waveunet_tpu_torch.models import waveunet as model
     from waveunet_tpu_torch.ops import shapes
+    from waveunet_tpu_torch.ops import kernels
     from waveunet_tpu_torch.ops.kernels import (build, conv1d_fused,
                                                 conv1d_im2col, interp)
 
@@ -731,20 +760,24 @@ def main() -> int:
         fwd_kernel = model.apply_waveunet(sep.params, cfg, wins)
         with plain_path(model, conv1d_fused, interp):
             fwd_plain = model.apply_waveunet(sep.params, cfg, wins)
-            plain_out = sep.separate(requests[0], sr)
+            plain_outs = [sep.separate(a, sr) for a in requests]
         err = max((fwd_kernel[k] - fwd_plain[k]).abs().max().item()
                   for k in fwd_kernel)
         print(f"forward of {len(pos)} windows, kernels vs plain: max_abs_err "
               f"{err:.3e} (tol {FORWARD_ATOL})", flush=True)
         if not err <= FORWARD_ATOL:
             fail("the kernel forward disagrees with the plain forward")
-        kernel_out = sep.separate(requests[0], sr)
-        err2 = max(float(np.abs(kernel_out[k] - plain_out[k]).max())
-                   for k in kernel_out)
-        print(f"2 s request, kernels vs plain: max_abs_err {err2:.3e} "
-              f"(tol {FORWARD_ATOL})", flush=True)
-        if not err2 <= FORWARD_ATOL:
-            fail("the served separation disagrees with the plain path")
+        # every chunk size the requests launch (and the graphs replay)
+        tols = plain_tols(cfg)
+        for audio, plain_out in zip(requests, plain_outs):
+            kernel_out = sep.separate(audio, sr)
+            err2 = {k: float(np.abs(kernel_out[k] - plain_out[k]).max())
+                    for k in kernel_out}
+            print(f"{audio.shape[0] / sr:.1f} s request, kernels vs plain: "
+                  f"max_abs_err {json.dumps(err2)} (tol {json.dumps(tols)})",
+                  flush=True)
+            if any(not err2[k] <= tols[k] for k in err2):
+                fail("the served separation disagrees with the plain path")
 
     with phase("forward"):
         conv1d_im2col.launches = 0
@@ -823,6 +856,38 @@ def main() -> int:
         preset_rows = serve_presets(get_config, model, Separator,
                                     conv1d_fused, interp, np, torch)
 
+    # The slice's other serving paths, each driven with the launch counts
+    # set to 0 just before it and read just after.
+    path_launches = {"serve": dict(launches)}
+
+    with phase("sweep"):
+        sweep_rows = sweep_check(get_config, model, Separator, conv1d_fused,
+                                 interp, kernels, np, torch, dev)
+        path_launches["sweep"] = sweep_rows[0]["launches"]
+
+    with phase("graphs"):
+        graph_rows = graphs_check(sep, requests, sr, kernels, np, torch)
+        path_launches["graphs"] = graph_rows["launches"]
+
+    with phase("spectro"):
+        spectro_row = spectro_check(get_config, Separator, kernels, clip, np,
+                                    torch)
+        path_launches["spectro"] = spectro_row["launches"]
+
+    with phase("stream"):
+        stream_row = stream_check(get_config, model, Separator, conv1d_fused,
+                                  interp, kernels, rng, np, torch, dev)
+        path_launches["stream"] = stream_row["launches"]
+
+    with phase("m6"):
+        m6_row = m6_check(get_config, model, Separator, conv1d_fused, interp,
+                          np, torch, dev)
+
+    with phase("bench"):
+        kernels.reset_launches()
+        bench_rec = bench_check()
+        path_launches["bench"] = kernels.launch_counts()
+
     def entry(name, rows, source, replaces, n_launch, **extra):
         fwd = [r for r in forward_rows if r["kernel"] == name]
         return {
@@ -856,11 +921,15 @@ def main() -> int:
         entry("conv1d_lrelu", conv_rows,
               "waveunet_tpu_torch/ops/kernels/csrc/conv1d_lrelu.cu",
               "waveunet_tpu/ops/pallas/conv1d_fused.py:49",
-              launches["conv1d_lrelu"], edge_shapes=edge_rows),
+              launches["conv1d_lrelu"], edge_shapes=edge_rows,
+              launches_by_path={p: c["conv1d_lrelu"]
+                                for p, c in path_launches.items()}),
         entry("learned_interp", interp_rows,
               "waveunet_tpu_torch/ops/kernels/csrc/learned_interp.cu",
               "waveunet_tpu/ops/pallas/interp.py:41",
-              launches["learned_interp"]),
+              launches["learned_interp"],
+              launches_by_path={p: c["learned_interp"]
+                                for p, c in path_launches.items()}),
         # its own path is phase "im2col" (the counterpart of
         # tools/pallas_im2col_bench.py); the served requests launch it never
         entry("conv1d_lrelu_im2col", im2col_rows,
@@ -869,6 +938,8 @@ def main() -> int:
               launches_by_phase["im2col"],
               launches_by_phase=dict(launches_by_phase,
                                      serve=launches["conv1d_lrelu_im2col"]),
+              launches_by_path={p: c["conv1d_lrelu_im2col"]
+                                for p, c in path_launches.items()},
               edge_shapes=im2col_edge_rows, tool_shapes=tool_rows,
               tool_sums=tool_sum),
     ]
@@ -876,6 +947,13 @@ def main() -> int:
           f"(after interpreter start)", flush=True)
     print(f"served: {json.dumps(served)}", flush=True)
     print(f"presets: {json.dumps(preset_rows)}", flush=True)
+    print(f"sweep: {json.dumps(sweep_rows)}", flush=True)
+    print(f"graphs: {json.dumps(graph_rows)}", flush=True)
+    print(f"spectro: {json.dumps(spectro_row)}", flush=True)
+    print(f"stream: {json.dumps(stream_row)}", flush=True)
+    print(f"m6: {json.dumps(m6_row)}", flush=True)
+    print(f"bench: {json.dumps(bench_rec)}", flush=True)
+    print(f"launches by path: {json.dumps(path_launches)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1049,21 +1127,22 @@ def im2col_row(conv1d_im2col, conv_row, x, w, b, w_lib, y, torch):
 
 def request_breakdown(sep, audio, sr, torch):
     """One separate() request: its wall time beside the device time of each
-    forward chunk (CUDA events around each chunk's framing and forward). The
+    chunk (CUDA events around each chunk's framing and forward, or its
+    graph's replay with the copies into the graph's static buffers). The
     rest of the wall time is host work, copies and launch gaps."""
     chunks = []
-    forward_chunk = sep._forward_chunk
+    run_chunk = sep._run_chunk
 
-    def timed(song, pos):
+    def timed(mode, inp, pos):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = forward_chunk(song, pos)
+        out = run_chunk(mode, inp, pos)
         end.record()
-        chunks.append((len(pos), start, end))
+        chunks.append((int(pos.shape[0]), start, end))
         return out
 
-    sep._forward_chunk = timed
+    sep._run_chunk = timed
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1071,12 +1150,407 @@ def request_breakdown(sep, audio, sr, torch):
         wall_ms = 1e3 * (time.perf_counter() - t0)
         torch.cuda.synchronize()
     finally:
-        del sep._forward_chunk  # back to the class's method
+        del sep._run_chunk  # back to the class's method
     chunk_ms = [s.elapsed_time(e) for _, s, e in chunks]
     return {"seconds": audio.shape[0] / sr,
             "chunks": [k for k, _, _ in chunks], "chunk_ms": chunk_ms,
             "device_ms": sum(chunk_ms), "wall_ms": wall_ms,
             "device_idle_share": 1.0 - sum(chunk_ms) / wall_ms}
+
+
+def sweep_check(get_config, model, Separator, conv1d_fused, interp, kernels,
+                np, torch, dev):
+    """The bench's resident sweep (full_44KHz, 65,536-frame window, batch
+    16, the 60 s bench song) on both wires: eager and as one CUDA graph,
+    which must agree bit for bit; against separate() on the card
+    (SWEEP_ATOL, SWEEP_DIFF_ATOL for the int16 difference source) and
+    against separate() through the plain path (plain_tols), which holds the
+    kernels at every chunk size of the schedule (16, 8 and 1 windows); timed
+    eager and graphed; the graph's replays counted into the launches."""
+    from waveunet_tpu_torch.bench import make_bench_song
+
+    rows = []
+    for wire in ("int16", "float32"):
+        cfg = get_config("full_44KHz", infer_num_frames=65536,
+                         infer_batch=16, infer_wire_dtype=wire)
+        sep = Separator(cfg, model.init_waveunet(
+            torch.Generator().manual_seed(SEED), cfg, dev))
+        sr = cfg.expected_sr
+        song = make_bench_song(sr, 60.0)
+        n = len(song)
+        song_dev = sep.stage_resident(song)
+        eager_fn, positions = sep.resident_sweep(n, graphed=False)
+        graph_fn, _ = sep.resident_sweep(n)
+        eager, eager_cs = eager_fn(sep.params, song_dev)
+        graphed, graph_cs = graph_fn(sep.params, song_dev)
+        torch.cuda.synchronize()
+        names = list(cfg.source_names)
+        same = all(torch.equal(eager[k], graphed[k]) for k in names)
+        same = same and torch.equal(eager_cs, graph_cs)
+        host = sep.separate(song, sr)
+        with plain_path(model, conv1d_fused, interp):
+            plain = sep.separate(song, sr)
+        swept = {k: graphed[k].cpu().numpy() for k in names}
+        errs = {k: float(np.abs(swept[k] - host[k]).max()) for k in names}
+        tols = {k: (SWEEP_DIFF_ATOL if wire == "int16" and k == names[-1]
+                    else SWEEP_ATOL) for k in names}
+        # separate() rebuilds the difference source from the unquantised mix
+        plain_tol = plain_tols(cfg, mix_rounding=(
+            SWEEP_DIFF_ATOL if wire == "int16" else 0.0))
+        plain_errs = {k: float(np.abs(swept[k] - plain[k]).max())
+                      for k in names}
+        sizes = sep.resident_chunk_sizes(len(positions))
+        graph = graph_fn.held["graph"]
+        kernels.reset_launches()
+        graph.replays = 0
+        for _ in range(3):
+            graph_fn(sep.params, song_dev)
+        torch.cuda.synchronize()
+        counted = kernels.launch_counts()
+        want = {k: 3 * v for k, v in graph.launches.items()}
+        per_chunk = {"conv1d_lrelu": 2 * cfg.num_layers + 1,
+                     "learned_interp": cfg.num_layers,
+                     "conv1d_lrelu_im2col": 0}
+        per_graph = {k: v * len(sizes) for k, v in per_chunk.items()}
+        eager_ms = time_cuda(lambda: eager_fn(sep.params, song_dev), torch)
+        graph_ms = time_cuda(lambda: graph_fn(sep.params, song_dev), torch)
+        row = {"wire": wire, "windows": len(positions), "chunks": sizes,
+               "graph_identical_to_eager": same, "max_abs_err_vs_separate":
+               errs, "tol": tols, "max_abs_err_vs_plain_separate":
+               plain_errs, "plain_tol": plain_tol,
+               "eager_ms": eager_ms, "graph_ms": graph_ms,
+               "eager_audio_s_per_s": 60.0 / (eager_ms / 1e3),
+               "graph_audio_s_per_s": 60.0 / (graph_ms / 1e3),
+               "replays": graph.replays, "launches_per_replay":
+               graph.launches, "launches": counted}
+        print(f"sweep {json.dumps(row)}", flush=True)
+        if not same:
+            fail(f"the graphed sweep ({wire}) differs from the eager sweep")
+        if not all(np.isfinite(host[k]).all() for k in names):
+            fail("the sweep's song separated to non-finite audio")
+        if any(not errs[k] <= tols[k] for k in names):
+            fail(f"the sweep ({wire}) disagrees with separate()")
+        if any(not plain_errs[k] <= plain_tol[k] for k in names):
+            fail(f"the sweep ({wire}) disagrees with separate() through "
+                 f"the plain path")
+        if graph.launches != per_graph or counted != want:
+            fail(f"the sweep's launches {counted} are not 3 replays of "
+                 f"{per_graph}")
+        rows.append(row)
+    return rows
+
+
+def graphs_check(sep, requests, sr, kernels, np, torch):
+    """precompile() on the served full_44KHz engine, then the three
+    requests again through its CUDA graphs and pinned copies: identical bit
+    for bit to the eager run, each chunk a replay, the kernels' launches
+    counted from the replays; walls, device time and idle share beside the
+    eager requests'."""
+    eager = [sep.separate(a, sr) for a in requests]
+    eager_bd = [request_breakdown(sep, a, sr, torch) for a in requests]
+    t0 = time.perf_counter()
+    n_graphs = sep.precompile(max_song_s=60.0,
+                              progress=lambda m: print(m, flush=True))
+    capture_s = time.perf_counter() - t0
+    graphs = sep._graphs
+    for g in graphs.values():
+        g.replays = 0
+    kernels.reset_launches()
+    graphed = [sep.separate(a, sr) for a in requests]
+    torch.cuda.synchronize()
+    counted = kernels.launch_counts()
+    replays = {f"{m}/{k}": g.replays for (m, k), g in graphs.items()
+               if g.replays}
+    want = {name: sum(g.replays * g.launches[name] for g in graphs.values())
+            for name in counted}
+    n_chunks = sum(len(r["chunks"]) for r in eager_bd)
+    same = all(np.array_equal(e[k], g[k]) for e, g in zip(eager, graphed)
+               for k in e)
+    walls = []
+    for a in requests:
+        w = []
+        for _ in range(REPEATS):
+            t1 = time.perf_counter()
+            sep.separate(a, sr)
+            w.append(time.perf_counter() - t1)
+        walls.append(float(np.median(w)))
+    graph_bd = [request_breakdown(sep, a, sr, torch) for a in requests]
+    audio_s = sum(a.shape[0] / sr for a in requests)
+    # The engine's host pipeline alone: the same requests with a forward
+    # that returns zeros (no model), every source copied back.
+    cfg = sep.cfg
+
+    def zeros(p, x):
+        z = torch.zeros((x.shape[0], sep.out_len, cfg.num_channels),
+                        device=x.device)
+        return {s: z for s in cfg.source_names}
+
+    bare = type(sep)(cfg, sep.params, forward_fn=zeros)
+    bare.separate(requests[0], sr)
+    pipeline_ms = []
+    for a in requests:
+        w = []
+        for _ in range(REPEATS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            bare.separate(a, sr)
+            w.append(1e3 * (time.perf_counter() - t1))
+        pipeline_ms.append(float(np.median(w)))
+    print(f"engine without a model (zero forward), median walls: "
+          f"{pipeline_ms} ms for {[a.shape[0] / sr for a in requests]} s",
+          flush=True)
+    row = {"graphs": n_graphs, "capture_s": capture_s,
+           "zero_forward_walls_ms": pipeline_ms,
+           "identical_to_eager": same, "replays": replays,
+           "chunks": n_chunks, "launches": counted,
+           "graphed_walls_s": walls,
+           "graphed_audio_s_per_s": audio_s / sum(walls),
+           "eager": eager_bd, "graphed": graph_bd}
+    for e, g in zip(eager_bd, graph_bd):
+        print(f"request {e['seconds']:.1f} s: eager wall {e['wall_ms']:.2f} "
+              f"ms, device {e['device_ms']:.2f} ms, idle "
+              f"{e['device_idle_share']:.3f}; graphed wall "
+              f"{g['wall_ms']:.2f} ms, device {g['device_ms']:.2f} ms, idle "
+              f"{g['device_idle_share']:.3f}", flush=True)
+    print(f"graphed: {n_graphs} graphs captured in {capture_s:.3f} s; "
+          f"{audio_s:.1f} audio-s in {sum(walls):.4f} s (median walls): "
+          f"{audio_s / sum(walls):.1f} audio-s/s; replays {replays}; "
+          f"launches {counted}", flush=True)
+    if not same:
+        fail("the graphed requests differ from the eager requests")
+    if sum(replays.values()) != n_chunks or counted != want:
+        fail(f"the graphed requests replayed {replays} for {n_chunks} "
+             f"chunks and launched {counted}, not {want}")
+    if counted["conv1d_lrelu"] == 0 or counted["learned_interp"] == 0:
+        fail("the graphed requests launched no conv or interp kernel")
+    return row
+
+
+def spectro_check(get_config, Separator, kernels, clip, np, torch):
+    """U7 at full width (6 layers, 16 to 512 channels, 8,192 Hz,
+    infer_batch 8) separating a 30 s clip on the card and on the CPU
+    (SPECTRO_ATOL), then through its CUDA graphs (bit for bit)."""
+    from waveunet_tpu_torch.models.spectrogram_unet import (
+        init_spectrogram_unet)
+
+    cfg = get_config("unet_spectrogram", infer_batch=8)
+    params, state = init_spectrogram_unet(
+        torch.Generator().manual_seed(SEED), cfg, "cpu")
+    sr = cfg.expected_sr
+    rng = np.random.default_rng(SEED)
+    t = np.arange(30 * sr) / sr
+    audio = (0.3 * np.sin(2 * np.pi * 220.0 * t)[:, None]
+             + 0.1 * rng.standard_normal((t.size, 2))).astype(np.float32)
+    sep = Separator(cfg, params, model_state=state)
+    first = sep.separate(audio, sr)  # also the warm-up: cuDNN, cuFFT plans
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    on_card = sep.separate(audio, sr)
+    wall = time.perf_counter() - t0
+    counted = kernels.launch_counts()
+    on_cpu = Separator(cfg, params, model_state=state,
+                       device="cpu").separate(audio, sr)
+    err = max(float(np.abs(on_card[k] - on_cpu[k]).max()) for k in on_cpu)
+    n_graphs = sep.precompile(max_song_s=30.0)
+    t0 = time.perf_counter()
+    graphed = sep.separate(audio, sr)
+    graph_wall = time.perf_counter() - t0
+    same = all(np.array_equal(graphed[k], on_card[k]) for k in on_card)
+    repeatable = all(np.array_equal(first[k], on_card[k]) for k in on_card)
+    graph_err = max(float(np.abs(graphed[k] - on_card[k]).max())
+                    for k in on_card)
+    row = {"config": "unet_spectrogram", "layers": cfg.num_layers,
+           "filters": cfg.num_initial_filters, "sr": sr,
+           "window": [sep.in_len, sep.out_len], "seconds": 30.0,
+           "max_abs_err_vs_cpu": err, "tol": SPECTRO_ATOL,
+           "eager_wall_s": wall, "graphs": n_graphs,
+           "graphed_wall_s": graph_wall, "graph_identical_to_eager": same,
+           "graph_max_abs_err": graph_err,
+           "eager_identical_run_to_run": repeatable, "launches": counted}
+    print(f"spectro {json.dumps(row)}", flush=True)
+    if not all(np.isfinite(on_card[k]).all()
+               and on_card[k].shape == (audio.shape[0], 1) for k in on_card):
+        fail("U7 on the card gave non-finite or misshapen audio")
+    if not err <= SPECTRO_ATOL:
+        fail("U7 on the card disagrees with the CPU path")
+    if not repeatable:
+        fail("two eager U7 separations of one clip differ")
+    if not same:
+        fail("U7 through its CUDA graphs differs from the eager run")
+    return row
+
+
+def conv_splits(model, conv1d_fused, params, cfg, wins):
+    """The split-K count of each conv launch of one forward of ``wins``."""
+    splits = []
+    plan = conv1d_fused.plan_launch
+
+    def recorded(*a, **k):
+        p = plan(*a, **k)
+        splits.append(p.splits)
+        return p
+
+    conv1d_fused.plan_launch = recorded
+    try:
+        model.apply_waveunet(params, cfg, wins)
+    finally:
+        conv1d_fused.plan_launch = plan
+    return splits
+
+
+def stream_check(get_config, model, Separator, conv1d_fused, interp,
+                 kernels, rng, np, torch, dev):
+    """full_44KHz streamed in uneven pushes on the card (training window,
+    batch_windows 4): every fully-contexted sample within STREAM_ATOL of the
+    card's offline output at the same window, and both streams (drains of
+    1 to 4 windows, and of 1) within plain_tols of the offline output
+    through the plain path; batched drains against serial (batch 1)
+    drains, bit for bit where the conv's launch plans of the batch sizes
+    agree, else within STREAM_BATCH_ATOL."""
+    from waveunet_tpu_torch.infer.streaming import StreamingSeparator
+
+    cfg = get_config("full_44KHz", infer_num_frames=None)
+    params = model.init_waveunet(torch.Generator().manual_seed(SEED), cfg,
+                                 dev)
+    sr = cfg.expected_sr
+    n = 10 * sr
+    t = np.arange(n) / sr
+    audio = (0.3 * np.sin(2 * np.pi * 330.0 * t)[:, None]
+             + 0.1 * rng.standard_normal((n, 2))).astype(np.float32)
+    pushes = []
+    while sum(pushes) < n:
+        pushes.append(int(rng.integers(1, 60000)))
+
+    def stream(batch_windows):
+        st = StreamingSeparator(cfg, params, batch_windows=batch_windows)
+        got = {s: [] for s in cfg.source_names}
+        off = 0
+        for p in pushes:
+            for s, v in st.push(audio[off:off + p]).items():
+                got[s].append(v)
+            off += p
+        for s, v in st.flush().items():
+            got[s].append(v)
+        return st, {s: np.concatenate(v) for s, v in got.items()}
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    st, batched = stream(4)
+    wall = time.perf_counter() - t0
+    counted = kernels.launch_counts()
+    _, serial = stream(1)
+    offline = Separator(cfg, params).separate(audio, sr)
+    with plain_path(model, conv1d_fused, interp):
+        plain = Separator(cfg, params).separate(audio, sr)
+    n_cmp = n - st.out_len
+    err = max(float(np.abs(batched[k][:n_cmp] - offline[k][:n_cmp]).max())
+              for k in offline)
+    tols = plain_tols(cfg)
+    plain_errs = {f"{which}/{k}": float(np.abs(
+        got[k][:n_cmp] - plain[k][:n_cmp]).max())
+        for which, got in (("batched", batched), ("serial", serial))
+        for k in plain}
+    batch_err = max(float(np.abs(batched[k] - serial[k]).max())
+                    for k in serial)
+    bitwise = all(np.array_equal(batched[k], serial[k]) for k in serial)
+    wins = torch.zeros((4, st.in_len, cfg.num_channels), device=dev)
+    plans = {b: conv_splits(model, conv1d_fused, params, cfg, wins[:b])
+             for b in (1, 2, 4)}
+    plans_agree = plans[1] == plans[2] == plans[4]
+    row = {"seconds": n / sr, "pushes": len(pushes),
+           "window": [st.in_len, st.out_len], "batch_windows": 4,
+           "wall_s": wall, "max_abs_err_vs_offline": err,
+           "tol": STREAM_ATOL, "compared_samples": n_cmp,
+           "max_abs_err_vs_plain_offline": plain_errs, "plain_tol": tols,
+           "batched_vs_serial_bitwise": bitwise,
+           "batched_vs_serial_max_abs_err": batch_err,
+           "conv_splits_by_batch": plans, "conv_plans_agree": plans_agree,
+           "launches": counted}
+    print(f"stream {json.dumps(row)}", flush=True)
+    if not all(batched[k].shape == (n, cfg.num_channels)
+               and np.isfinite(batched[k]).all() for k in batched):
+        fail("the stream gave non-finite or misshapen audio")
+    if not err <= STREAM_ATOL:
+        fail("the stream disagrees with the offline separation")
+    if any(not e <= tols[k.split("/")[1]] for k, e in plain_errs.items()):
+        fail("the stream disagrees with the offline separation through the "
+             "plain path")
+    if plans_agree and not bitwise:
+        fail("batched drains differ from serial drains under equal plans")
+    if not batch_err <= STREAM_BATCH_ATOL:
+        fail("batched drains disagree with serial drains")
+    if counted["conv1d_lrelu"] == 0 or counted["learned_interp"] == 0:
+        fail("the stream launched no conv or interp kernel")
+    return row
+
+
+def m6_check(get_config, model, Separator, conv1d_fused, interp, np, torch,
+             dev):
+    """M6 (full_multi_instrument) at the bench's full width and schedule
+    (65,536-frame window, batch 16, int16 wire, the 60 s bench song): the
+    eager resident sweep through the kernels against the same sweep through
+    the plain path (plain_tols), at every chunk size it launches."""
+    from waveunet_tpu_torch.bench import make_bench_song
+
+    cfg = get_config("full_multi_instrument", infer_num_frames=65536,
+                     infer_batch=16, infer_wire_dtype="int16")
+    sep = Separator(cfg, model.init_waveunet(
+        torch.Generator().manual_seed(SEED), cfg, dev))
+    song = make_bench_song(cfg.expected_sr, 60.0)
+    song_dev = sep.stage_resident(song)
+    fn, positions = sep.resident_sweep(len(song), graphed=False)
+    got, _ = fn(sep.params, song_dev)
+    with plain_path(model, conv1d_fused, interp):
+        want, _ = fn(sep.params, song_dev)
+    tols = plain_tols(cfg)
+    errs = {k: (got[k] - want[k]).abs().max().item() for k in got}
+    row = {"config": "full_multi_instrument", "layers": cfg.num_layers,
+           "filters": cfg.num_initial_filters,
+           "sources": list(cfg.source_names), "windows": len(positions),
+           "chunks": sep.resident_chunk_sizes(len(positions)),
+           "max_abs_err_vs_plain": errs, "tol": tols}
+    print(f"m6 {json.dumps(row)}", flush=True)
+    if not all(torch.isfinite(v).all().item() for v in got.values()):
+        fail("M6's sweep gave non-finite audio")
+    if any(not errs[k] <= tols[k] for k in errs):
+        fail("M6's sweep through the kernels disagrees with the plain path")
+    return row
+
+
+def plain_tols(cfg, mix_rounding: float = 0.0):
+    """Per source, how far a separation through the kernels may lie from
+    one through the plain path: FORWARD_ATOL for a network output, one
+    WIRE_STEP more on the int16 wire; the difference source, clip(mix -
+    the others), carries the others' errors summed, and ``mix_rounding``
+    where the two sides rebuild it from differently quantised mixes."""
+    names = list(cfg.source_names)
+    tol = FORWARD_ATOL + (WIRE_STEP if cfg.infer_wire_dtype == "int16"
+                          else 0.0)
+    tols = {k: tol for k in names}
+    if cfg.output_type == "difference":
+        tols[names[-1]] = (len(names) - 1) * tol + mix_rounding
+    return tols
+
+
+def bench_check():
+    """The port's bench (waveunet_tpu_torch/bench.py) at its REPS_MIN
+    interleaved e2e pairs: every key of its JSON line, with positive
+    numbers."""
+    from waveunet_tpu_torch import bench
+
+    rec = bench.run(reps=(BENCH_REPS_MIN, BENCH_REPS_MIN))
+    print(f"bench line: {json.dumps(rec)}", flush=True)
+    missing = [k for k in bench.REQUIRED_KEYS if k not in rec]
+    if missing:
+        fail(f"the bench's JSON line lacks {missing}")
+    for k in ("value", "vs_baseline", "compute_roof_audio_s_per_s",
+              "m6_resident_audio_s_per_s", "u7_resident_audio_s_per_s",
+              "e2e_rtf"):
+        if not (isinstance(rec[k], (int, float)) and rec[k] > 0):
+            fail(f"the bench's {k} is {rec[k]!r}")
+    if rec.get("smoke"):
+        fail("the bench ran in smoke mode on the card")
+    return rec
 
 
 @contextlib.contextmanager

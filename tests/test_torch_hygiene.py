@@ -90,12 +90,17 @@ def test_build_without_nvcc_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["init_waveunet", "params_from_numpy",
-                                   "Separator", "separate_file"])
+                                   "Separator", "separate_file",
+                                   "StreamingSeparator",
+                                   "init_spectrogram_unet",
+                                   "load_tf_waveunet", "load_tf_spectrogram",
+                                   "griffin_lim"])
 def test_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
     """No device argument means the card; without one they raise and do not
     fall back to the CPU."""
     import waveunet_tpu_torch as w
     from waveunet_tpu_torch.data.audio_io import write_wav
+    from waveunet_tpu_torch.ops.stft import griffin_lim
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = w.get_config("full", num_layers=2, num_initial_filters=4)
@@ -109,6 +114,14 @@ def test_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
             w.params_to_numpy(params)),
         "Separator": lambda: w.Separator(cfg, params),
         "separate_file": lambda: w.separate_file(cfg, params, wav),
+        "StreamingSeparator": lambda: w.StreamingSeparator(cfg, params),
+        "init_spectrogram_unet": lambda: w.init_spectrogram_unet(
+            torch.Generator(), w.get_config("unet_spectrogram")),
+        "load_tf_waveunet": lambda: w.load_tf_waveunet(
+            str(tmp_path / "missing.ckpt"), cfg),
+        "load_tf_spectrogram": lambda: w.load_tf_spectrogram(
+            str(tmp_path / "missing.ckpt"), w.get_config("unet_spectrogram")),
+        "griffin_lim": lambda: griffin_lim(np.ones((4, 513), np.float32)),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -6,26 +6,35 @@ entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 Every conv + LeakyReLU and learned interpolation of the inference forward
 runs in hand-written CUDA kernels (``ops/kernels/``) on the card.
 
-Importing the package loads only the configuration; the model, the engine and
-the kernels load on first use.
+The serving surface: ``Separator`` (song and slab modes, CUDA graphs from
+``precompile``, the device-resident ``resident_sweep``),
+``StreamingSeparator``, both model families (Wave-U-Net and the U7
+spectrogram U-Net), TensorFlow-free checkpoint loaders and the bench
+(``python -m waveunet_tpu_torch.bench``).
+
+Importing the package loads only the configuration; the models, the engine
+and the kernels load on first use.
 """
 
 from waveunet_tpu_torch.config import Config, get_config, preset_names
 
 __version__ = "0.1.0"
 
-__all__ = ["Config", "get_config", "preset_names", "Separator",
-           "separate_file", "init_waveunet", "apply_waveunet",
-           "params_from_numpy", "params_to_numpy", "__version__"]
-
 _LAZY = {
     "Separator": "waveunet_tpu_torch.infer.engine",
     "separate_file": "waveunet_tpu_torch.infer.engine",
+    "StreamingSeparator": "waveunet_tpu_torch.infer.streaming",
     "init_waveunet": "waveunet_tpu_torch.models.waveunet",
     "apply_waveunet": "waveunet_tpu_torch.models.waveunet",
+    "init_spectrogram_unet": "waveunet_tpu_torch.models.spectrogram_unet",
+    "apply_spectrogram_unet": "waveunet_tpu_torch.models.spectrogram_unet",
+    "load_tf_waveunet": "waveunet_tpu_torch.compat.tf_checkpoint",
+    "load_tf_spectrogram": "waveunet_tpu_torch.compat.tf_checkpoint",
     "params_from_numpy": "waveunet_tpu_torch.compat.params",
     "params_to_numpy": "waveunet_tpu_torch.compat.params",
 }
+
+__all__ = ["Config", "get_config", "preset_names", *_LAZY, "__version__"]
 
 
 def __getattr__(name):

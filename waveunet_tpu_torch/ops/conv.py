@@ -1,13 +1,17 @@
-"""1-D convolution in the TF layout, parameter initialisation, precision.
+"""Convolutions in the TF layouts, parameter initialisation, precision.
 
-PyTorch counterpart of ``waveunet_tpu/ops/conv.py::conv1d`` and
-``glorot_uniform``. Layouts match TF so converted checkpoints and the JAX
-package's parameters drop straight in: a conv1d kernel is ``[width, in, out]``
-over activations ``[B, L, C]``.
+PyTorch counterpart of ``waveunet_tpu/ops/conv.py`` (``conv1d``,
+``conv2d``, ``conv2d_transpose``, ``glorot_uniform`` and the inits). Layouts
+match TF so converted checkpoints and the JAX package's parameters drop
+straight in: a conv1d kernel is ``[width, in, out]`` over activations
+``[B, L, C]``; a conv2d kernel ``[h, w, in, out]`` and a conv2d_transpose
+kernel ``[h, w, out, in]`` over ``[B, H, W, C]``.
 
-This plain convolution serves the convs that no kernel of the port covers
-(the K=1 output convs). Every conv followed by LeakyReLU goes through
-``ops/kernels/conv1d_fused.py`` instead.
+The plain conv1d serves the convs that no kernel of the port covers (the
+K=1 output convs); every conv followed by LeakyReLU goes through
+``ops/kernels/conv1d_fused.py`` instead. The 2-D convs of the spectrogram
+U-Net are cuDNN calls, as they are ``lax`` convolutions outside any Pallas
+kernel in the JAX package; TF32 follows ``precision_scope``.
 """
 
 from __future__ import annotations
@@ -69,6 +73,19 @@ def conv1d_init(generator: torch.Generator, width: int, in_ch: int,
     }
 
 
+def conv2d_init(generator: torch.Generator, hw: Tuple[int, int], in_ch: int,
+                out_ch: int, device=None, dtype=torch.float32,
+                transpose: bool = False):
+    """A conv2d kernel ``[h, w, in, out]``, or with ``transpose`` a
+    conv2d_transpose kernel ``[h, w, out, in]``, and a zero bias."""
+    shape = ((hw[0], hw[1], out_ch, in_ch) if transpose
+             else (hw[0], hw[1], in_ch, out_ch))
+    return {
+        "kernel": glorot_uniform(shape, generator, device, dtype),
+        "bias": torch.zeros((out_ch,), dtype=dtype, device=device),
+    }
+
+
 def same_pads(length: int, width: int, stride: int = 1,
               dilation: int = 1) -> Tuple[int, int]:
     """TF's SAME padding (lo, hi) for one spatial dim: the extra sample of an
@@ -98,3 +115,41 @@ def conv1d(x: torch.Tensor, params, *, padding: Padding = "VALID",
                  dilation=rhs_dilation)               # [B, out, W']
     y = y.transpose(1, 2).float() + b.float()
     return y.to(in_dtype)
+
+
+def conv2d(x: torch.Tensor, params, *, stride: Tuple[int, int] = (1, 1),
+           padding: str = "SAME") -> torch.Tensor:
+    """2-D convolution over ``[B, H, W, C]`` with a TF-layout kernel
+    ``[h, w, in, out]``; TF's SAME puts an odd extra pad at the end."""
+    k, b = params["kernel"], params["bias"]
+    kh, kw = k.shape[0], k.shape[1]
+    xc = x.permute(0, 3, 1, 2)                        # [B, C, H, W]
+    if padding == "SAME":
+        ph = same_pads(x.shape[1], kh, stride[0])
+        pw = same_pads(x.shape[2], kw, stride[1])
+        xc = F.pad(xc, (*pw, *ph))
+    elif padding != "VALID":
+        raise ValueError(f"padding {padding!r}: use 'SAME' or 'VALID'")
+    y = F.conv2d(xc, k.permute(3, 2, 0, 1), stride=stride)
+    return y.permute(0, 2, 3, 1) + b
+
+
+def conv2d_transpose(x: torch.Tensor, params, *,
+                     stride: Tuple[int, int] = (2, 2),
+                     padding: str = "SAME") -> torch.Tensor:
+    """2-D transposed convolution as ``tf.layers.conv2d_transpose``: the
+    gradient of a conv2d whose kernel, read as ``[h, w, in, out]``, is this
+    ``[h, w, out, in]`` kernel. The full transposed output is cropped by the
+    forward conv's SAME pads, so a SAME output is ``stride`` times the
+    input; ``conv_transpose2d`` flips the taps as the gradient does."""
+    if padding != "SAME":
+        raise ValueError(f"padding {padding!r}: only 'SAME' is ported")
+    k, b = params["kernel"], params["bias"]
+    kh, kw = k.shape[0], k.shape[1]
+    H, W = x.shape[1] * stride[0], x.shape[2] * stride[1]
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1),
+                           stride=stride)            # [B, out, H', W']
+    ph = same_pads(H, kh, stride[0])[0]
+    pw = same_pads(W, kw, stride[1])[0]
+    y = y[:, :, ph:ph + H, pw:pw + W]
+    return y.permute(0, 2, 3, 1) + b

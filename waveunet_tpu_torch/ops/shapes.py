@@ -24,7 +24,7 @@ from waveunet_tpu_torch.config import Config
 
 
 # The spectrogram net's STFT framing (waveunet_tpu/ops/stft.py FRAME_LEN,
-# HOP), kept here until the port has its own STFT module.
+# HOP); ops/stft.py takes its constants from here.
 STFT_FRAME_LEN = 1024
 STFT_HOP = 768
 
