@@ -62,11 +62,26 @@ wall seconds, each under a watchdog:
   11. stream: full_44KHz streamed in uneven pushes, against the offline
      output on the card, and batched drains against serial ones;
   12. bench: the port's bench (waveunet_tpu_torch/bench.py) at its
-     REPS_MIN e2e pairs, its JSON line checked key by key.
+     REPS_MIN e2e pairs, its JSON line checked key by key;
+  13. train: full_44KHz training at full width from a synthesised song
+     cache (4 train, 2 valid, 1 test songs of 8 s, stereo 44.1 kHz, made
+     with the port's own preprocess): the device banks (the sampler's
+     batches on the card equal to the CPU's), one batch-2 step on the card
+     against the CPU (the loss, every gradient against fp64 beside the CPU
+     fp32 distance, every gradient non-zero, the Adam update; the same
+     step with TF32 convs as the control the checks must reject), optimise()
+     through both rounds (batch 16, then 32; epoch_it cut) with
+     checkpoints, best.txt and a resume that goes on from the saved Adam
+     slots, the fused epoch (CUDA graph replays) bit for bit against the
+     eager loop, step times split into sampling, forward, backward and
+     Adam, steps/s, trained audio-s/s, the idle share over a fused chunk,
+     peak memory, and validation through the conv and interp kernels
+     against the plain path (every eval batch's outputs and loss, and the
+     mean), with its launch counts.
 
-Each of the paths of phases 5 and 8 to 12 is driven with the kernels'
-launch counts set to 0 just before it and read just after (a graph replay
-adds the launches its capture recorded).
+Each of the paths of phases 5, 8 to 12 and 13's optimise() is driven with
+the kernels' launch counts set to 0 just before it and read just after (a
+graph replay adds the launches its capture recorded).
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Without a card, or run outside a
@@ -91,7 +106,7 @@ SEED = 1234
 LIMITS = {"nvidia-smi": 30, "build": 400, "kernels": 120, "timing": 180,
           "im2col": 240, "serve": 420, "forward": 300, "presets": 240,
           "sweep": 240, "graphs": 240, "spectro": 300, "stream": 240,
-          "m6": 120, "bench": 420}
+          "m6": 120, "bench": 420, "train": 150}
 
 # Peaks of one H100 SXM (NVIDIA data sheet) for the bounds: dense TF32 on
 # the tensor cores (the conv kernel computes in 3xTF32: three TF32 products
@@ -888,6 +903,11 @@ def main() -> int:
         bench_rec = bench_check()
         path_launches["bench"] = kernels.launch_counts()
 
+    with phase("train"):
+        train_row = train_check(get_config, model, conv1d_fused, interp,
+                                kernels, np, torch, dev)
+        path_launches["train"] = train_row["launches"]
+
     def entry(name, rows, source, replaces, n_launch, **extra):
         fwd = [r for r in forward_rows if r["kernel"] == name]
         return {
@@ -953,6 +973,7 @@ def main() -> int:
     print(f"stream: {json.dumps(stream_row)}", flush=True)
     print(f"m6: {json.dumps(m6_row)}", flush=True)
     print(f"bench: {json.dumps(bench_rec)}", flush=True)
+    print(f"train: {json.dumps(train_row)}", flush=True)
     print(f"launches by path: {json.dumps(path_launches)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1551,6 +1572,506 @@ def bench_check():
     if rec.get("smoke"):
         fail("the bench ran in smoke mode on the card")
     return rec
+
+
+# -- phase train -------------------------------------------------------------
+
+TRAIN_SONGS = {"train": 4, "valid": 2, "test": 1}
+TRAIN_SONG_S = 8.0
+TRAIN_EPOCH_IT = 6      # epoch_it (2000 published) cut to fit the phase
+TRAIN_TIMED_STEPS = 5   # eager steps timed per batch size, after a warm-up
+TRAIN_FUSED_STEPS = 4   # steps of the fused-against-eager check
+TRAIN_CHUNK = 8         # fused replays timed as one chunk
+LOSS_RTOL = 1e-5        # one step's loss, card against the CPU
+# Each parameter's gradient, scored as max|g - g_fp64| / max|g_fp64|: the
+# card's distance from the CPU's fp64 gradient may be at most GRAD_FACTOR
+# times the CPU fp32 one's, or GRAD_FLOOR where that is larger. A weight's
+# gradient sums up to 3e5 products, and where they cancel 30- to 60-fold
+# fp32 rounding reaches about 1e-3 of its largest value on either device
+# (the CPU reached 7e-4 on random batches, the card 1e-3 on sine batches).
+# The relative L2 distance of the whole gradient vector must stay within
+# GRAD_L2_FACTOR times the CPU's or GRAD_L2_FLOOR (the card reached 6.1e-6,
+# the CPU 7.7e-6). The same step with TF32 convs, run as a control, must
+# fail each check: on the card it read 3.5e-5 on the loss, 0.10 on its
+# worst tensor and 6.7e-4 relative L2.
+GRAD_FACTOR = 4.0
+GRAD_FLOOR = 2e-3
+GRAD_L2_FACTOR = 4.0
+GRAD_L2_FLOOR = 1e-4
+ADAM_ATOL = 1e-7        # Adam on the card against Adam on the CPU, the same
+                        # gradients: a few fp32 steps of values below 0.5
+VALID_RTOL = 1e-4       # validation loss through the kernels vs plain path
+BATCH_LOSS_RTOL = 1e-5  # one eval batch's loss, kernels vs plain path (the
+                        # mean's gap was 2.8e-7 on the card)
+
+
+def make_train_songs(cache, write_wav, cfg, root, np):
+    """Sine-and-noise stems, stereo 44.1 kHz, TRAIN_SONG_S seconds each,
+    written as float WAVs and cached with the port's own preprocess."""
+    from waveunet_tpu_torch.ops import shapes
+
+    in_len, out_len = shapes.get_padding(cfg, cfg.num_frames)
+    rng = np.random.default_rng(SEED)
+    n = int(TRAIN_SONG_S * cfg.expected_sr)
+    t = np.arange(n) / cfg.expected_sr
+    for part, n_songs in TRAIN_SONGS.items():
+        samples = []
+        for i in range(n_songs):
+            tracks = {}
+            for name in cfg.source_names:
+                f = rng.uniform(80.0, 1200.0, 2)
+                sig = (0.3 * np.sin(2 * np.pi * f[None, :] * t[:, None])
+                       + 0.05 * rng.standard_normal((n, 2)))
+                tracks[name] = sig.astype(np.float32)
+            tracks["mix"] = sum(tracks.values())
+            paths = {}
+            for k, v in tracks.items():
+                paths[k] = os.path.join(root, f"{part}_{i}_{k}.wav")
+                write_wav(paths[k], v, cfg.expected_sr, subtype="FLOAT")
+            samples.append(paths)
+        cache.preprocess_partition(cfg, part, samples,
+                                   pad_frames=(in_len - out_len) // 2)
+
+
+def tree_err(got, want, ref, torch):
+    """{layer/name: max|got - ref| / max|ref|}, and the same for want."""
+    out = {}
+    for layer in ref:
+        for n, r in ref[layer].items():
+            s = r.abs().max().item()
+            out[f"{layer}/{n}"] = (
+                (got[layer][n].double().cpu() - r).abs().max().item() / s,
+                (want[layer][n].double().cpu() - r).abs().max().item() / s,
+                s)
+    return out
+
+
+def step_parity(cfg, model, bank_cpu, step_mod, torch, dev):
+    """One full-width training step (batch 2) on the card and on the CPU
+    from the same params and batch: the loss, every gradient against fp64
+    on the CPU beside the CPU fp32 distance, and the Adam update. The same
+    step on the card with TF32 in cuDNN's convs is the control: each of the
+    three checks (loss, per tensor, relative L2) must reject it."""
+    gen = torch.Generator().manual_seed(SEED)
+    p_cpu = model.init_waveunet(gen, cfg, "cpu")
+    p_dev = {k: {n: t.to(dev) for n, t in v.items()} for k, v in p_cpu.items()}
+    p_64 = {k: {n: t.double() for n, t in v.items()} for k, v in p_cpu.items()}
+    bank_cpu.set_batch(2)
+    batch = bank_cpu.sample(SEED, 0)
+    batch_dev = {k: v.to(dev) for k, v in batch.items()}
+
+    def grads(c, params, b):
+        with step_mod._step_scope(c):
+            return step_mod.value_and_grad(step_mod.make_loss_fn(c, True),
+                                           params, {}, b)
+
+    t0 = time.perf_counter()
+    l_dev, _, g_dev = grads(cfg, p_dev, batch_dev)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    l_cpu, _, g_cpu = grads(cfg, p_cpu, batch)
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    l_64, _, g_64 = grads(cfg, p_64, {k: v.double() for k, v in batch.items()})
+    t_64 = time.perf_counter() - t0
+
+    def rel_l2(g):
+        num = sum(((g[k][n].double().cpu() - r) ** 2).sum().item()
+                  for k, v in g_64.items() for n, r in v.items())
+        den = sum((r ** 2).sum().item() for v in g_64.values()
+                  for r in v.values())
+        return (num / den) ** 0.5
+
+    l2_cpu = rel_l2(g_cpu)
+
+    def verdict(loss, g):
+        """The checks' numbers for a card step, and why each check that
+        rejects it does so."""
+        errs = tree_err(g, g_cpu, g_64, torch)
+        bad = [k for k, (e_dev, e_cpu, s) in errs.items()
+               if not e_dev <= max(GRAD_FACTOR * e_cpu, GRAD_FLOOR)]
+        l2 = rel_l2(g)
+        loss_rel = abs(loss.item() - l_cpu.item()) / abs(l_cpu.item())
+        why = {}
+        if not loss_rel <= LOSS_RTOL:
+            why["loss"] = (f"the loss is {loss_rel:.3e} from the CPU's (tol "
+                           f"{LOSS_RTOL})")
+        if bad:
+            why["per_tensor"] = f"gradients off: { {k: errs[k] for k in bad} }"
+        if not l2 <= max(GRAD_L2_FACTOR * l2_cpu, GRAD_L2_FLOOR):
+            why["rel_l2"] = (f"the gradient is {l2:.3e} from fp64 (relative "
+                             f"L2), the CPU's {l2_cpu:.3e}")
+        nums = {"loss": loss.item(), "loss_rel_err": loss_rel,
+                "grad_err_max": max(e[0] for e in errs.values()),
+                "grad_rel_l2": l2, "grads_off": len(bad)}
+        return nums, why, errs
+
+    nums, why, errs = verdict(l_dev, g_dev)
+    zero = [f"{k}/{n}" for k, v in g_dev.items() for n, g in v.items()
+            if g is None or not torch.any(g != 0).item()]
+    # the control: TF32 in every conv of the forward and the backward
+    tf32 = cfg.replace(conv_precision="default")
+    l_tf, _, g_tf = grads(tf32, p_dev, batch_dev)
+    control, control_why, _ = verdict(l_tf, g_tf)
+    del g_tf
+    # Adam on the card, and Adam on the CPU on the card's gradients
+    tx = step_mod.make_optimizer(cfg.init_sup_sep_lr)
+    s_dev, s_cpu = tx.init(p_dev), tx.init(p_cpu)
+    g_dev_cpu = {k: {n: g.cpu() for n, g in v.items()}
+                 for k, v in g_dev.items()}
+    tx.update_(p_dev, g_dev, s_dev)
+    tx.update_(p_cpu, g_dev_cpu, s_cpu)
+    adam_err = max(max((p_dev[k][n].cpu() - p_cpu[k][n]).abs().max().item(),
+                       (s_dev["nu"][k][n].cpu() - s_cpu["nu"][k][n]).abs()
+                       .max().item(),
+                       (s_dev["mu"][k][n].cpu() - s_cpu["mu"][k][n]).abs()
+                       .max().item())
+                   for k in p_cpu for n in p_cpu[k])
+    worst = max(errs.items(), key=lambda kv: kv[1][0] / max(kv[1][1], 1e-30))
+    row = {"batch": 2, "loss_card": l_dev.item(), "loss_cpu": l_cpu.item(),
+           "loss_fp64": l_64.item(), "loss_rel_err": nums["loss_rel_err"],
+           "params": len(errs),
+           "grad_err_card_max": nums["grad_err_max"],
+           "grad_err_cpu_max": max(e[1] for e in errs.values()),
+           "grad_worst_ratio": {worst[0]: worst[1]},
+           "grad_rel_l2": {"card": nums["grad_rel_l2"], "cpu": l2_cpu},
+           "grad_errs": {k: e[:2] for k, e in errs.items()},
+           "adam_max_abs_err": adam_err,
+           "tf32_control": dict(control, rejected_by=sorted(control_why)),
+           "seconds": {"card": t_dev, "cpu_fp32": t_cpu, "cpu_fp64": t_64}}
+    print(f"train step parity (full width, batch 2): {json.dumps(row)}",
+          flush=True)
+    if why:
+        fail(f"the training step on the card: {'; '.join(why.values())}")
+    if zero:
+        fail(f"parameters without a gradient on the card: {zero}")
+    # each check on its own must tell TF32 from fp32
+    passed = {"loss", "per_tensor", "rel_l2"} - set(control_why)
+    if passed:
+        fail(f"the step-parity checks {sorted(passed)} pass TF32 convs too: "
+             f"{control}")
+    if not adam_err <= ADAM_ATOL:
+        fail(f"Adam on the card is {adam_err:.3e} from Adam on the CPU")
+    return row
+
+
+def step_breakdown(cfg, bank, state, step_mod, torch, deterministic=True):
+    """Eager steps at the bank's batch size, each split by CUDA events into
+    sampling, forward (and loss), backward and Adam; medians over
+    TRAIN_TIMED_STEPS steps after a warm-up, and the host wall per step.
+    ``deterministic=False`` times the same step with cuDNN free to pick
+    non-deterministic algorithms: the cost of the training step's
+    deterministic setting, measured only."""
+    import numpy as np
+
+    scope = step_mod._step_scope
+    if not deterministic:
+        def scope(cfg):
+            return step_mod.precision_scope(cfg.conv_precision)
+
+    loss_fn = step_mod.make_loss_fn(cfg, True)
+    tx = step_mod.make_optimizer(cfg.init_sup_sep_lr)
+    params, opt = state.params, state.opt_state
+    leaves = step_mod._leaves(params)
+    parts = []
+    torch.cuda.synchronize()
+    t0 = None
+    for i in range(TRAIN_TIMED_STEPS + 1):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        with scope(cfg):
+            ev[0].record()
+            batch = bank.sample(SEED, 10_000 + i)
+            ev[1].record()
+            with torch.enable_grad():
+                for t in leaves:
+                    t.requires_grad_(True)
+                loss, _ = loss_fn(params, {}, batch)
+                ev[2].record()
+                flat = torch.autograd.grad(loss, leaves)
+            ev[3].record()
+            it = iter(flat)
+            g = {k: {n: next(it) for n in v} for k, v in params.items()}
+            tx.update_(params, g, opt)
+            ev[4].record()
+        if i:
+            parts.append(ev)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / TRAIN_TIMED_STEPS
+    names = ("sampler", "forward", "backward", "adam")
+    ms = {n: float(np.median([e[j].elapsed_time(e[j + 1]) for e in parts]))
+          for j, n in enumerate(names)}
+    ms["device_total"] = float(np.median([e[0].elapsed_time(e[4])
+                                          for e in parts]))
+    ms["wall"] = wall_ms
+    return ms
+
+
+def fused_chunk(epoch_fn, state, key, torch):
+    """Wall ms per step of TRAIN_CHUNK fused steps (graph replays; the graph
+    exists already), and the device's idle share over them from a
+    torch.profiler trace (busy = the sum of device kernel times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    epoch_fn(state.params, state.model_state, state.opt_state, key,
+             state.step)  # the capture, if the graph is not there yet
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch_fn(state.params, state.model_state, state.opt_state, key,
+             state.step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        epoch_fn(state.params, state.model_state, state.opt_state, key,
+                 state.step)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    # kernel time as the profiler attributes it (graph kernels included)
+    busy_us = sum(getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0.0)
+                  for e in prof.key_averages())
+    idle = (1.0 - busy_us / 1e6 / prof_wall) if busy_us > 0 else None
+    return {"ms_per_step": 1e3 * wall / TRAIN_CHUNK,
+            "profiled_ms_per_step": 1e3 * prof_wall / TRAIN_CHUNK,
+            "device_busy_ms_per_step": busy_us / 1e3 / TRAIN_CHUNK,
+            "device_idle_share": idle}
+
+
+def fused_vs_eager(cfg, bank, loop, step_mod, torch, dev):
+    """TRAIN_FUSED_STEPS steps from one initial state, eagerly and as the
+    fused epoch (a warm-up step, a capture and replays): the parameters and
+    Adam slots bit for bit."""
+    from waveunet_tpu_torch.train.step import make_scanned_epoch
+
+    lr = cfg.init_sup_sep_lr
+    fcfg = cfg.replace(epoch_it=TRAIN_FUSED_STEPS)
+    eager = loop.init_state(fcfg, device=dev)
+    _, step_fn = step_mod.make_train_step(fcfg, lr, device=dev)
+    eager, el = loop.train_one_epoch(fcfg, eager, step_fn,
+                                     bank.batches(SEED, start=0))
+    fused = loop.init_state(fcfg, device=dev)
+    epoch_fn = make_scanned_epoch(fcfg, lr, TRAIN_FUSED_STEPS, bank.sample,
+                                  chunk=2, device=dev)
+    fused, fl = loop.train_one_epoch_scanned(fcfg, fused, epoch_fn, SEED)
+    trees = [("params", fused.params, eager.params),
+             ("mu", fused.opt_state["mu"], eager.opt_state["mu"]),
+             ("nu", fused.opt_state["nu"], eager.opt_state["nu"])]
+    differ = [f"{what} {k}/{n}" for what, a, b in trees for k in a
+              for n in a[k] if not torch.equal(a[k][n], b[k][n])]
+    row = {"steps": TRAIN_FUSED_STEPS, "batch": cfg.batch_size,
+           "graph_captured": epoch_fn.graph_state.get("graph") is not None,
+           "eager_mean_loss": el, "fused_mean_loss": fl,
+           "identical": not differ}
+    print(f"train fused vs eager: {json.dumps(row)}", flush=True)
+    if not row["graph_captured"]:
+        fail("the fused epoch captured no CUDA graph on the card")
+    if differ or el != fl:
+        fail(f"the fused epoch differs from the eager loop: {differ[:5]}")
+    return row
+
+
+def validation_check(cfg, ev, params, model, conv1d_fused, interp, kernels,
+                     torch):
+    """The EvalBank's sweep through the kernels (graph replays) against the
+    same sweep through the plain path, with its launch counts: every eval
+    batch's separated outputs (eager, kernels against plain) within
+    FORWARD_ATOL, every batch's loss within BATCH_LOSS_RTOL and the mean
+    within VALID_RTOL. Re-setting the same batch size and sweeping again
+    (a new capture) gives the same losses bit for bit."""
+    ev.evaluate(params, {})  # captures the sweep's graph
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = ev.evaluate(params, {})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = kernels.launch_counts()
+    (g,) = ev._graphs.values()
+    want = {k: ev.n_batches * g.launches[k] for k in counted}
+    got_losses = ev.batch_losses(params, {})
+    out_err = 0.0
+    for i in range(ev.n_batches):
+        mix = ev.batch_at(i)["mix"]
+        est = model.apply_waveunet(params, cfg, mix, False)
+        with plain_path(model, conv1d_fused, interp):
+            ref = model.apply_waveunet(params, cfg, mix, False)
+        out_err = max(out_err, *((est[k] - ref[k]).abs().max().item()
+                                 for k in ref))
+    with plain_path(model, conv1d_fused, interp):
+        ev.evaluate(params, {}, graphed=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = ev.evaluate(params, {}, graphed=False)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        plain_losses = ev.batch_losses(params, {}, graphed=False)
+    ev.set_batch(ev.batch)
+    again = ev.batch_losses(params, {})
+    windows = ev.n_batches * ev.batch
+    rel = abs(got - plain) / abs(plain)
+    batch_rel = max(abs(float(a) - float(b)) / abs(float(b))
+                    for a, b in zip(got_losses, plain_losses))
+    row = {"batch": ev.batch, "batches": ev.n_batches, "windows": windows,
+           "loss_kernels": got, "loss_plain": plain, "rel_err": rel,
+           "batch_loss_rel_err_max": batch_rel,
+           "output_max_abs_err": out_err,
+           "resweep_after_set_batch_equal": bool((again == got_losses).all()),
+           "launches": counted, "launches_per_batch": g.launches,
+           "windows_per_s_kernels": windows / wall,
+           "windows_per_s_plain": windows / plain_wall}
+    print(f"train validation: {json.dumps(row)}", flush=True)
+    if not out_err <= FORWARD_ATOL:
+        fail(f"validation outputs through the kernels are {out_err:.3e} from "
+             f"the plain path's (tol {FORWARD_ATOL})")
+    if not batch_rel <= BATCH_LOSS_RTOL:
+        fail(f"a validation batch's loss through the kernels is "
+             f"{batch_rel:.3e} from the plain path's (tol {BATCH_LOSS_RTOL})")
+    if not rel <= VALID_RTOL:
+        fail(f"validation through the kernels is {rel:.3e} from the plain "
+             f"path (tol {VALID_RTOL})")
+    if not row["resweep_after_set_batch_equal"]:
+        fail(f"the sweep after set_batch({ev.batch}) gave {again}, not "
+             f"{got_losses}")
+    if (g.launches.get("conv1d_lrelu") != 25
+            or g.launches.get("learned_interp") != 12 or counted != want):
+        fail(f"validation launched {counted}, not {ev.n_batches} batches x "
+             f"(25 conv, 12 interp): graph {g.launches}")
+    return row
+
+
+def train_check(get_config, model, conv1d_fused, interp, kernels, np, torch,
+                dev):
+    """Phase train: full_44KHz training on the card from a synthesised
+    song cache (the module docstring, phase 13)."""
+    import tempfile
+
+    from waveunet_tpu_torch.data import cache
+    from waveunet_tpu_torch.data.audio_io import write_wav
+    from waveunet_tpu_torch.data.device_cache import DeviceBank, EvalBank
+    from waveunet_tpu_torch.ops import shapes
+    from waveunet_tpu_torch.train import checkpoint as ckpt
+    from waveunet_tpu_torch.train import loop
+    from waveunet_tpu_torch.train import step as step_mod
+    from waveunet_tpu_torch.bench import waveunet_conv_flops
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        base = get_config("full_44KHz")
+        cfg = base.replace(data_path=os.path.join(root, "cache"),
+                           model_base_dir=os.path.join(root, "ckpt"),
+                           log_dir=os.path.join(root, "logs"),
+                           epoch_it=TRAIN_EPOCH_IT, worse_epochs=1)
+        print(f"train: full_44KHz at full width ({cfg.num_layers} layers, "
+              f"{cfg.num_initial_filters} filters, window {cfg.num_frames}, "
+              f"batch {cfg.batch_size}, then {2 * cfg.batch_size}); "
+              f"epoch_it {base.epoch_it} cut to {cfg.epoch_it}, "
+              f"{TRAIN_SONGS} songs of {TRAIN_SONG_S} s", flush=True)
+        t0 = time.perf_counter()
+        make_train_songs(cache, write_wav, cfg, root, np)
+        in_len, out_len = shapes.get_padding(cfg, cfg.num_frames)
+        row = {"in_len": in_len, "out_len": out_len,
+               "epoch_it": cfg.epoch_it,
+               "data_s": time.perf_counter() - t0}
+
+        bank = DeviceBank(cfg, "train", in_len, out_len, device=dev)
+        bank_cpu = DeviceBank(cfg, "train", in_len, out_len, device="cpu")
+        ev = EvalBank(cfg, "valid", in_len, out_len, device=dev)
+        row["bank_bytes"] = bank.nbytes()
+        row["eval_bank_bytes"] = ev.nbytes()
+        print(f"train: DeviceBank {bank.n_songs} songs, {bank.nbytes()} "
+              f"bytes; EvalBank {ev.n_windows} windows, {ev.nbytes()} bytes",
+              flush=True)
+        same = all(torch.equal(bank.sample(SEED, s)[k].cpu(),
+                               bank_cpu.sample(SEED, s)[k])
+                   for s in (0, 12345) for k in (*cfg.source_names, "mix"))
+        row["sampler_card_equals_cpu"] = same
+        if not same:
+            fail("the device sampler draws other batches on the card")
+
+        row["step_parity"] = step_parity(cfg, model, bank_cpu, step_mod,
+                                         torch, dev)
+        del bank_cpu
+
+        # the training path, launch counts from 0 just before it
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        best, test_loss = loop.optimise(cfg, experiment_id="chip",
+                                        max_epochs_per_round=1, device=dev)
+        torch.cuda.synchronize()
+        row["optimise_s"] = time.perf_counter() - t0
+        row["launches"] = kernels.launch_counts()
+        recs = [json.loads(line) for line in open(
+            os.path.join(cfg.log_dir, "chip", "metrics.jsonl"))]
+        losses = {k: [r[k] for r in recs if k in r]
+                  for k in ("sep_loss", "valid_loss", "test_loss")}
+        row["losses"] = losses
+        if not all(losses[k] and np.all(np.isfinite(losses[k]))
+                   for k in losses):
+            fail(f"training losses missing or not finite: {losses}")
+        with open(os.path.join(cfg.model_base_dir, "chip", "best.txt")) as f:
+            marked = f.read().strip()
+        saved = ckpt.restore_checkpoint(marked)
+        if marked != best or saved["step"] != int(saved["opt_state"]["count"]):
+            fail(f"best.txt names {marked}, optimise returned {best}, step "
+                 f"{saved['step']} count {saved['opt_state']['count']}")
+        loop.optimise(cfg, experiment_id="chip_resume", resume_path=best,
+                      max_epochs_per_round=1, device=dev)
+        first = ckpt.restore_checkpoint(ckpt.step_path(
+            cfg.model_base_dir, "chip_resume", saved["step"] + cfg.epoch_it))
+        row["resume"] = {"from_step": saved["step"],
+                         "first_step": first["step"],
+                         "first_count": int(first["opt_state"]["count"])}
+        if first["opt_state"]["count"] != saved["step"] + cfg.epoch_it:
+            fail(f"the resumed run did not go on from the saved Adam slots: "
+                 f"{row['resume']}")
+
+        row["fused_vs_eager"] = fused_vs_eager(cfg, bank, loop, step_mod,
+                                               torch, dev)
+
+        # speed at both rounds' batches, from the trained state
+        from waveunet_tpu_torch.train.step import make_scanned_epoch
+        state = loop.init_state(cfg, device=dev)
+        flops = waveunet_conv_flops(cfg, in_len)
+        row["timing"] = {}
+        for b in (cfg.batch_size, 2 * cfg.batch_size):
+            bcfg = cfg.replace(batch_size=b)
+            bank.set_batch(b)
+            torch.cuda.reset_peak_memory_stats()
+            eager_ms = step_breakdown(bcfg, bank, state, step_mod, torch)
+            epoch_fn = make_scanned_epoch(bcfg, bcfg.init_sup_sep_lr,
+                                          TRAIN_CHUNK, bank.sample,
+                                          device=dev)
+            fused = fused_chunk(epoch_fn, state, SEED, torch)
+            torch.cuda.synchronize()
+            steps_s = 1e3 / fused["ms_per_step"]
+            t = {"eager_ms": eager_ms, "fused": fused,
+                 "eager_ms_cudnn_nondeterministic": step_breakdown(
+                     bcfg, bank, state, step_mod, torch,
+                     deterministic=False),
+                 "steps_per_s_fused": steps_s,
+                 "steps_per_s_eager": 1e3 / eager_ms["wall"],
+                 "trained_audio_s_per_s": steps_s * b * out_len
+                 / cfg.expected_sr,
+                 "conv_tflops_per_s": 3 * flops * b * steps_s / 1e12,
+                 "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            row["timing"][b] = t
+            del epoch_fn
+            print(f"train timing batch {b}: {json.dumps(t)}", flush=True)
+        row["validation"] = []
+        for b in (cfg.batch_size, 2 * cfg.batch_size):
+            ev.set_batch(b)
+            row["validation"].append(validation_check(
+                cfg, ev, state.params, model, conv1d_fused, interp, kernels,
+                torch))
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    return row
 
 
 @contextlib.contextmanager

@@ -190,7 +190,7 @@ def full_44khz_launches(batch):
         n = 2 * x.shape[1] - 1 if context else 2 * x.shape[1]
         return torch.empty((x.shape[0], n, x.shape[2]), device="meta")
 
-    def out_conv(x, p, padding):
+    def out_conv(x, p, padding, compute_dtype=None):
         return torch.empty(x.shape[:2] + (p["kernel"].shape[2],),
                            device="meta")
 

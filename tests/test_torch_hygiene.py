@@ -57,7 +57,15 @@ def test_package_imports_without_jax():
             "waveunet_tpu_torch.models.waveunet, "
             "waveunet_tpu_torch.compat.params, "
             "waveunet_tpu_torch.data.audio_io, "
-            "waveunet_tpu_torch.ops.kernels.build\n"
+            "waveunet_tpu_torch.ops.kernels.build, "
+            "waveunet_tpu_torch.train.loop, waveunet_tpu_torch.train.step, "
+            "waveunet_tpu_torch.train.checkpoint, "
+            "waveunet_tpu_torch.train.metrics, "
+            "waveunet_tpu_torch.data.device_cache, "
+            "waveunet_tpu_torch.data.pipeline, "
+            "waveunet_tpu_torch.data.ingest, waveunet_tpu_torch.data.cache, "
+            "waveunet_tpu_torch.data.sampler\n"
+            "assert w.optimise is waveunet_tpu_torch.train.loop.optimise\n"
             "assert w.Separator is waveunet_tpu_torch.infer.engine.Separator\n"
             "assert not any(m.startswith(('jax', 'triton')) "
             "for m in sys.modules if sys.modules[m] is not None)\n")
@@ -94,13 +102,19 @@ def test_build_without_nvcc_raises(monkeypatch):
                                    "StreamingSeparator",
                                    "init_spectrogram_unet",
                                    "load_tf_waveunet", "load_tf_spectrogram",
-                                   "griffin_lim"])
+                                   "griffin_lim", "optimise", "init_state",
+                                   "DeviceBank", "EvalBank",
+                                   "make_train_step", "make_scanned_epoch",
+                                   "make_eval_step"])
 def test_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
     """No device argument means the card; without one they raise and do not
     fall back to the CPU."""
     import waveunet_tpu_torch as w
     from waveunet_tpu_torch.data.audio_io import write_wav
     from waveunet_tpu_torch.ops.stft import griffin_lim
+    from waveunet_tpu_torch.train.step import (make_eval_step,
+                                               make_scanned_epoch,
+                                               make_train_step)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = w.get_config("full", num_layers=2, num_initial_filters=4)
@@ -122,10 +136,20 @@ def test_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
         "load_tf_spectrogram": lambda: w.load_tf_spectrogram(
             str(tmp_path / "missing.ckpt"), w.get_config("unet_spectrogram")),
         "griffin_lim": lambda: griffin_lim(np.ones((4, 513), np.float32)),
+        "optimise": lambda: w.optimise(cfg.replace(
+            log_dir=str(tmp_path / "logs"))),
+        "init_state": lambda: w.init_state(cfg),
+        "DeviceBank": lambda: w.DeviceBank(cfg, "train", 100, 50),
+        "EvalBank": lambda: w.EvalBank(cfg, "valid", 100, 50),
+        "make_train_step": lambda: make_train_step(cfg, 1e-4),
+        "make_scanned_epoch": lambda: make_scanned_epoch(
+            cfg, 1e-4, 2, lambda key, step: {}),
+        "make_eval_step": lambda: make_eval_step(cfg),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
     assert not os.path.exists(str(tmp_path / "mix.wav_vocals.wav"))
+    assert not os.path.exists(str(tmp_path / "logs"))
 
 
 def test_wrappers_refuse_other_devices():

@@ -159,10 +159,19 @@ def test_params_round_trip():
 
 
 def test_inference_only():
+    """The inference forward builds no autograd graph, even for parameters
+    that require grad (the kernels have no backward); the training forward
+    (tests/test_torch_train_step.py) is the differentiable one, and an
+    unported network raises."""
     cfg = get_config("full", num_layers=2, num_initial_filters=4)
     params = init_waveunet(torch.Generator().manual_seed(0), cfg, "cpu")
+    for leaves in params.values():
+        for t in leaves.values():
+            t.requires_grad_(True)
+    mix = torch.zeros(1, 300, 2)
+    assert all(v.grad_fn is None
+               for v in apply_waveunet(params, cfg, mix).values())
+    assert all(v.grad_fn is not None for v in apply_waveunet(
+        params, cfg, mix, training=True).values())
     with pytest.raises(NotImplementedError):
-        apply_waveunet(params, cfg, torch.zeros(1, 300, 2), training=True)
-    with pytest.raises(NotImplementedError):
-        apply_waveunet(params, cfg.replace(compute_dtype="bfloat16"),
-                       torch.zeros(1, 300, 2))
+        apply_waveunet(params, cfg.replace(network="unet_spectrogram"), mix)

@@ -214,9 +214,17 @@ def test_inference_only_and_mono_only():
     params, state = su.init_spectrogram_unet(torch.Generator().manual_seed(0),
                                              cfg, "cpu")
     mix = torch.zeros(1, cfg.num_frames, 1)
-    with pytest.raises(NotImplementedError):
-        su.apply_spectrogram_unet(params, cfg, mix, training=True,
-                                  state=state)
+    # inference builds no autograd graph and leaves the statistics alone;
+    # training (tests/test_torch_train_step.py) is differentiable
+    for leaves in params.values():
+        for t in leaves.values():
+            t.requires_grad_(True)
+    out, st = su.apply_spectrogram_unet(params, cfg, mix, state=state)
+    assert st is state and all(v.grad_fn is None for v in out.values())
+    out, st = su.apply_spectrogram_unet(params, cfg, mix, training=True,
+                                        state=state)
+    assert st is not state and all(v.grad_fn is not None
+                                   for v in out.values())
     with pytest.raises(NotImplementedError):
         su.apply_spectrogram_unet(params, cfg.replace(
             compute_dtype="bfloat16"), mix, state=state)

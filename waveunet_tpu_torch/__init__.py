@@ -10,7 +10,10 @@ The serving surface: ``Separator`` (song and slab modes, CUDA graphs from
 ``precompile``, the device-resident ``resident_sweep``),
 ``StreamingSeparator``, both model families (Wave-U-Net and the U7
 spectrogram U-Net), TensorFlow-free checkpoint loaders and the bench
-(``python -m waveunet_tpu_torch.bench``).
+(``python -m waveunet_tpu_torch.bench``). Training: ``optimise`` (two
+early-stopped rounds, checkpoints, resume), ``init_state``, and the
+device-resident data banks ``DeviceBank`` and ``EvalBank``; the training
+step runs plain differentiable ops, validation runs through the kernels.
 
 Importing the package loads only the configuration; the models, the engine
 and the kernels load on first use.
@@ -32,6 +35,10 @@ _LAZY = {
     "load_tf_spectrogram": "waveunet_tpu_torch.compat.tf_checkpoint",
     "params_from_numpy": "waveunet_tpu_torch.compat.params",
     "params_to_numpy": "waveunet_tpu_torch.compat.params",
+    "optimise": "waveunet_tpu_torch.train.loop",
+    "init_state": "waveunet_tpu_torch.train.loop",
+    "DeviceBank": "waveunet_tpu_torch.data.device_cache",
+    "EvalBank": "waveunet_tpu_torch.data.device_cache",
 }
 
 __all__ = ["Config", "get_config", "preset_names", *_LAZY, "__version__"]

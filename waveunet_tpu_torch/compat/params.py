@@ -5,7 +5,9 @@ Both packages key parameters the same way (``down_i``, ``bottleneck``,
 ``{"weights"}``) and keep TF layouts (conv kernel ``[width, in, out]``), so
 the bridge converts arrays and renames nothing. A JAX pytree becomes numpy
 with ``jax.tree_util.tree_map(np.asarray, params)`` on the caller's side;
-this module never imports JAX.
+this module never imports JAX. optax's Adam state (``count``, ``mu``,
+``nu``, the moments keyed like the params) crosses the same way, so a JAX
+``TrainState`` can go on training in the port.
 """
 
 from __future__ import annotations
@@ -36,3 +38,26 @@ def params_to_numpy(params: Mapping[str, Mapping[str, torch.Tensor]]
     return {layer: {name: t.detach().to("cpu", torch.float32).numpy()
                     for name, t in leaves.items()}
             for layer, leaves in params.items()}
+
+
+def adam_state_from_numpy(count, mu: Mapping[str, Mapping[str, np.ndarray]],
+                          nu: Mapping[str, Mapping[str, np.ndarray]],
+                          device: DeviceLike = None) -> Dict:
+    """optax's Adam state as numpy (``count``, and ``mu`` and ``nu`` keyed
+    like the params) -> the port's ``train/step.py::Adam`` state on
+    ``device``. On the JAX side the state is
+    ``(ScaleByAdamState(count, mu, nu), EmptyState())``; pass its fields
+    through ``np.asarray``."""
+    dev = resolve_device(device)
+    return {"count": torch.tensor(int(np.asarray(count)), dtype=torch.int32,
+                                  device=dev),
+            "mu": params_from_numpy(mu, dev),
+            "nu": params_from_numpy(nu, dev)}
+
+
+def adam_state_to_numpy(state: Mapping) -> tuple:
+    """The port's Adam state -> ``(count, mu, nu)`` as numpy: an int32
+    scalar and two nested dicts of float32 arrays, optax's
+    ``ScaleByAdamState`` fields."""
+    return (np.asarray(int(state["count"]), np.int32),
+            params_to_numpy(state["mu"]), params_to_numpy(state["nu"]))

@@ -46,7 +46,7 @@ from waveunet_tpu_torch.infer.wire import (INT16_NONFINITE, from_wire,
                                            from_wire_np, quantize_int16,
                                            to_wire)
 from waveunet_tpu_torch.ops import shapes
-from waveunet_tpu_torch.ops.kernels import add_launches, launch_counts
+from waveunet_tpu_torch.ops.kernels import Graph, capture
 from waveunet_tpu_torch.ops.resample import resample
 
 __all__ = ["INT16_NONFINITE", "Separator", "separate_file",
@@ -100,39 +100,6 @@ def model_forward(cfg: Config, model_state: Mapping, out_len: int,
                 f"of framing slack escaped get_padding validation)")
         return out
     return forward
-
-
-class Graph:
-    """One captured CUDA graph: its static inputs and outputs, the kernel
-    launches one replay makes, and how often it was replayed."""
-
-    def __init__(self, graph, inputs, outputs, launches: Dict[str, int]):
-        self.graph, self.inputs, self.outputs = graph, inputs, outputs
-        self.launches = launches
-        self.replays = 0
-
-    def replay(self):
-        self.graph.replay()
-        self.replays += 1
-        add_launches(self.launches)
-        return self.outputs
-
-
-def capture(fn: Callable, inputs: Tuple[torch.Tensor, ...],
-            pool=None) -> Graph:
-    """Run ``fn(*inputs)`` once eagerly (kernel library, launch plans,
-    cuDNN and cuFFT handles and plans, the allocator), then capture it as a
-    CUDA graph over the same static ``inputs``. A failed capture raises."""
-    fn(*inputs)
-    torch.cuda.synchronize()
-    before = launch_counts()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
-        outputs = fn(*inputs)
-    # the wrappers counted while the graph recorded; nothing launched
-    recorded = {k: v - before[k] for k, v in launch_counts().items()}
-    add_launches(recorded, -1)
-    return Graph(graph, inputs, outputs, recorded)
 
 
 class Separator:

@@ -1,4 +1,4 @@
-"""Spectrogram U-Net (U7/U7a, Jansson et al. 2017), inference, in PyTorch.
+"""Spectrogram U-Net (U7/U7a, Jansson et al. 2017), inference and training, in PyTorch.
 
 Counterpart of ``waveunet_tpu/models/spectrogram_unet.py`` over the same
 flat parameter and state dicts (``"<src>/down_i"``, ``"<src>/down_i_bn"``,
@@ -15,10 +15,13 @@ flat parameter and state dicts (``"<src>/down_i"``, ``"<src>/down_i_bn"``,
   * source = iSTFT(mask * mixture spectrum), or the masked magnitudes with
     ``return_spectrogram``.
 
-Batch norm uses the moving statistics of ``state`` (eps 0.001, no scale).
-The 2-D convs run with cuDNN's deterministic algorithms, so a song
-separates to the same bits every time. Inference only: training (batch
-statistics, dropout) and bf16 compute raise.
+Batch norm (eps 0.001, centre only) uses the moving statistics of
+``state`` at inference; training normalises by the batch's statistics and
+moves the state's by 0.999, threaded through as the JAX package does, and
+applies dropout 0.5 on the first three up layers from an explicit
+``torch.Generator``. The 2-D convs run with cuDNN's deterministic
+algorithms, so a song separates to the same bits every time. bf16 compute
+raises.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from waveunet_tpu_torch.ops.primitives import leaky_relu, pad_freqs
 from waveunet_tpu_torch.ops.stft import istft, stft
 
 BN_EPS = 0.001
+BN_MOMENTUM = 0.999
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 
@@ -98,17 +102,43 @@ def _bn(x: torch.Tensor, beta: torch.Tensor,
     return (x - stats["mean"]) * torch.rsqrt(stats["var"] + BN_EPS) + beta
 
 
-@torch.no_grad()
+def _bn_train(x: torch.Tensor, beta: torch.Tensor,
+              stats: Dict[str, torch.Tensor]
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Centre-only batch norm by the batch's statistics (population
+    variance); returns (y, the moving statistics moved by 0.999), the new
+    statistics carrying no gradient."""
+    mean = x.mean(dim=(0, 1, 2))
+    var = x.var(dim=(0, 1, 2), unbiased=False)
+    new = {"mean": BN_MOMENTUM * stats["mean"]
+           + (1 - BN_MOMENTUM) * mean.detach(),
+           "var": BN_MOMENTUM * stats["var"]
+           + (1 - BN_MOMENTUM) * var.detach()}
+    return (x - mean) * torch.rsqrt(var + BN_EPS) + beta, new
+
+
+def dropout(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Keep each value with probability 0.5, scaled by 2; zero the rest."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 0.5
+    return torch.where(keep, x / 0.5, 0.0)
+
+
 def apply_spectrogram_unet(params: Tree, cfg: Config, mix: torch.Tensor,
                            training: bool = False,
                            state: Optional[Tree] = None,
-                           return_spectrogram: bool = False
+                           return_spectrogram: bool = False,
+                           generator: Optional[torch.Generator] = None
                            ) -> Tuple[Dict[str, torch.Tensor], Tree]:
     """mix ``[B, N, 1]`` -> ({source: audio ``[B, M, 1]``} or magnitudes
-    ``[B, F, 513]``), state (returned unchanged)."""
-    if training:
-        raise NotImplementedError(
-            "waveunet_tpu_torch serves inference only; training is not ported")
+    ``[B, F, 513]``), new state.
+
+    ``training=False`` runs under ``torch.no_grad()`` with the moving
+    statistics and returns ``state`` unchanged. ``training=True`` is
+    differentiable, normalises by batch statistics, returns the moved
+    statistics, and drops half of the first three up layers' values (kept
+    ones scaled by 2) with masks drawn from ``generator`` (a generator on
+    mix's device; seed 0 when None). The masks cannot match ``jax.random``'s.
+    """
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r}: the port computes the "
@@ -116,37 +146,57 @@ def apply_spectrogram_unet(params: Tree, cfg: Config, mix: torch.Tensor,
     if mix.shape[2] != 1:
         raise ValueError("the spectrogram model is mono-only")
     state = state or {}
+    if training and generator is None:
+        generator = torch.Generator(mix.device).manual_seed(0)
+    with (contextlib.nullcontext() if training else torch.no_grad()), \
+            precision_scope(cfg.conv_precision), deterministic_cudnn():
+        return _forward(params, cfg, mix, training, state, return_spectrogram,
+                        generator)
+
+
+def _forward(params: Tree, cfg: Config, mix: torch.Tensor, training: bool,
+             state: Tree, return_spectrogram: bool,
+             generator: Optional[torch.Generator]
+             ) -> Tuple[Dict[str, torch.Tensor], Tree]:
     L = cfg.num_layers
-    with precision_scope(cfg.conv_precision), deterministic_cudnn():
-        spec = stft(mix[..., 0])                          # [B, F, 513]
-        mix_mag = spec.abs()
-        x0 = torch.log1p(mix_mag)[..., None][:, :, :-1, :]  # [B, F, 512, 1]
-        masks, mags = {}, {}
-        for s in cfg.source_names:
-            cur = x0
-            skips = []
-            for i in range(L):
-                if cur.shape[1] % 2 or cur.shape[2] % 2:
-                    raise ValueError(f"spectrogram dims must halve cleanly, "
-                                     f"got {tuple(cur.shape)}")
-                cur = conv2d(cur, params[f"{s}/down_{i}"], stride=(2, 2))
-                cur = leaky_relu(_bn(cur, params[f"{s}/down_{i}_bn"]["beta"],
-                                     state[f"{s}/down_{i}_bn"]))
-                if i < L - 1:
-                    skips.append(cur)
-            for i in range(L - 1):
-                cur = conv2d_transpose(cur, params[f"{s}/up_{i}"],
-                                       stride=(2, 2))
-                cur = torch.relu(_bn(cur, params[f"{s}/up_{i}_bn"]["beta"],
-                                     state[f"{s}/up_{i}_bn"]))
-                cur = torch.cat([skips[-i - 1], cur], dim=3)
-            mask = torch.sigmoid(conv2d_transpose(cur, params[f"{s}/mask"],
-                                                  stride=(2, 2)))
-            masks[s] = pad_freqs(mask, mix_mag.shape[2], axis=2,
-                                 value=0.5)[..., 0]
-            mags[s] = mix_mag * masks[s]
-        if return_spectrogram:
-            return mags, state
-        # mask * spec is the reference's mag_s * exp(i angle(spec))
-        return {s: istft(masks[s] * spec)[..., None]
-                for s in cfg.source_names}, state
+    new_state: Tree = {}
+
+    def norm(key, x):
+        if not training:
+            return _bn(x, params[key]["beta"], state[key])
+        y, new_state[key] = _bn_train(x, params[key]["beta"], state[key])
+        return y
+
+    spec = stft(mix[..., 0])                              # [B, F, 513]
+    mix_mag = spec.abs()
+    x0 = torch.log1p(mix_mag)[..., None][:, :, :-1, :]   # [B, F, 512, 1]
+    masks, mags = {}, {}
+    for s in cfg.source_names:
+        cur = x0
+        skips = []
+        for i in range(L):
+            if cur.shape[1] % 2 or cur.shape[2] % 2:
+                raise ValueError(f"spectrogram dims must halve cleanly, "
+                                 f"got {tuple(cur.shape)}")
+            cur = conv2d(cur, params[f"{s}/down_{i}"], stride=(2, 2))
+            cur = leaky_relu(norm(f"{s}/down_{i}_bn", cur))
+            if i < L - 1:
+                skips.append(cur)
+        for i in range(L - 1):
+            cur = conv2d_transpose(cur, params[f"{s}/up_{i}"], stride=(2, 2))
+            cur = torch.relu(norm(f"{s}/up_{i}_bn", cur))
+            cur = torch.cat([skips[-i - 1], cur], dim=3)
+            if i < 3 and training:  # dropout(0.5) on the first 3 up layers
+                cur = dropout(cur, generator)
+        mask = torch.sigmoid(conv2d_transpose(cur, params[f"{s}/mask"],
+                                              stride=(2, 2)))
+        masks[s] = pad_freqs(mask, mix_mag.shape[2], axis=2,
+                             value=0.5)[..., 0]
+        mags[s] = mix_mag * masks[s]
+    if not training:
+        new_state = state
+    if return_spectrogram:
+        return mags, new_state
+    # mask * spec is the reference's mag_s * exp(i angle(spec))
+    return {s: istft(masks[s] * spec)[..., None]
+            for s in cfg.source_names}, new_state

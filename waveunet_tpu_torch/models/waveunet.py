@@ -1,4 +1,4 @@
-"""Time-domain Wave-U-Net separator, inference forward, in PyTorch.
+"""Time-domain Wave-U-Net separator, inference and training forward, in PyTorch.
 
 Counterpart of ``waveunet_tpu/models/waveunet.py`` over the same flat
 parameter dict (``down_i``, ``bottleneck``, ``interp_i``, ``up_i``,
@@ -13,9 +13,13 @@ nothing:
   * concat with the (cropped) input, then the K=1 output convs with tanh or
     clip, direct or difference output.
 
-Every conv + LeakyReLU goes through ``ops/kernels/conv1d_fused.py`` and every
-learned interpolation through ``ops/kernels/interp.py``: on a CUDA device
-they launch the hand-written kernels, on the CPU their plain versions run.
+At inference (``training=False``) every conv + LeakyReLU goes through
+``ops/kernels/conv1d_fused.py`` and every learned interpolation through
+``ops/kernels/interp.py``: on a CUDA device they launch the hand-written
+kernels, on the CPU their plain versions run. The training forward
+(``training=True``) is plain differentiable PyTorch (cuDNN convs under
+autograd on the card): the kernels have no backward, and the JAX package
+keeps its Pallas kernels out of training too.
 Decimation is the strided view the kernel reads without a copy, as in the JAX
 package's ``use_pallas`` path; same-padded presets pad explicitly before the
 same kernel. The K=1 output convs, tanh and ``clip(mix - acc)`` stay plain
@@ -28,6 +32,7 @@ from typing import Dict, List
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from waveunet_tpu_torch.config import Config
 from waveunet_tpu_torch.device import DeviceLike, resolve_device
@@ -36,8 +41,9 @@ from waveunet_tpu_torch.ops.conv import (conv1d, conv1d_init, precision_scope,
                                          same_pads)
 from waveunet_tpu_torch.ops.kernels.conv1d_fused import conv1d_lrelu
 from waveunet_tpu_torch.ops.kernels.interp import learned_interp
-from waveunet_tpu_torch.ops.primitives import audio_clip, crop, crop_and_concat
-from waveunet_tpu_torch.ops.upsample import bilinear_x2
+from waveunet_tpu_torch.ops.primitives import (audio_clip, crop,
+                                              crop_and_concat, leaky_relu)
+from waveunet_tpu_torch.ops.upsample import bilinear_x2, learned_interp_x2
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -82,45 +88,74 @@ def init_waveunet(generator: torch.Generator, cfg: Config,
 
 
 def _conv_act(x: torch.Tensor, p: Dict[str, torch.Tensor],
-              context: bool) -> torch.Tensor:
+              context: bool, bf16: bool) -> torch.Tensor:
     """conv + bias + LeakyReLU through the kernel wrapper; a same-padded
-    conv pads explicitly (TF SAME: the odd extra sample at the end)."""
+    conv pads explicitly (TF SAME: the odd extra sample at the end). With
+    ``bf16`` the operands are rounded to bfloat16 first and the kernel
+    accumulates them in fp32 (``ops/conv.py::conv1d``'s inference bf16)."""
     w = p["kernel"]
     if not context:
         x = F.pad(x, (0, 0, *same_pads(x.shape[1], w.shape[0])))
+    if bf16:
+        x = x.to(torch.bfloat16).float()
+        w = w.to(torch.bfloat16).float()
     return conv1d_lrelu(x, w, p["bias"])
 
 
-@torch.no_grad()
 def apply_waveunet(params: Params, cfg: Config, mix: torch.Tensor,
                    training: bool = False) -> Dict[str, torch.Tensor]:
     """Forward pass: mixture ``[B, in_len, C]`` -> {source: ``[B, out_len, C]``}.
 
-    Inference only: the kernels have no backward yet, and training lands in a
-    later slice of the port."""
-    if training:
-        raise NotImplementedError(
-            "waveunet_tpu_torch serves inference only; training is not ported")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: the port's kernels compute "
-            f"in float32 only")
+    ``training=False`` runs under ``torch.no_grad()`` through the kernel
+    wrappers (the hand-written kernels on the card). ``training=True`` is
+    the differentiable forward of plain PyTorch ops (cuDNN convs on the
+    card), with the JAX package's decimation lowering, ``remat`` and bf16
+    training convs; no kernel wrapper is reached, since the kernels have no
+    backward."""
     if cfg.network != "unet":
         raise NotImplementedError(f"network {cfg.network!r} is not ported")
-    with precision_scope(cfg.conv_precision):
+    if training:
+        with precision_scope(cfg.conv_precision):
+            return _train_forward(params, cfg, mix)
+    with torch.no_grad(), precision_scope(cfg.conv_precision):
         return _forward(params, cfg, mix)
+
+
+def _output(params: Params, cfg: Config, mix: torch.Tensor, cur: torch.Tensor,
+            conv, training: bool) -> Dict[str, torch.Tensor]:
+    """The output convs with tanh or clip (clip at inference only), direct
+    or difference output (the last source is mix - the others)."""
+    if cfg.output_activation == "tanh":
+        out_act = torch.tanh
+    else:
+        def out_act(x):
+            return audio_clip(x, training)
+    out: Dict[str, torch.Tensor] = {}
+    if cfg.output_type == "direct":
+        for name in cfg.source_names:
+            out[name] = out_act(conv(cur, params[f"out_{name}"]))
+        return out
+    acc = None
+    for name in cfg.source_names[:-1]:
+        y = out_act(conv(cur, params[f"out_{name}"]))
+        out[name] = y
+        acc = y if acc is None else acc + y
+    out[cfg.source_names[-1]] = audio_clip(crop(mix, acc.shape[1]) - acc,
+                                           training)
+    return out
 
 
 def _forward(params: Params, cfg: Config,
              mix: torch.Tensor) -> Dict[str, torch.Tensor]:
     ctx = cfg.context
+    bf16 = cfg.compute_dtype == "bfloat16"
     skips: List[torch.Tensor] = []
     cur = mix
     for i in range(cfg.num_layers):
-        cur = _conv_act(cur, params[f"down_{i}"], ctx)
+        cur = _conv_act(cur, params[f"down_{i}"], ctx, bf16)
         skips.append(cur)
         cur = cur[:, ::2, :]  # decimate: a strided view, no copy
-    cur = _conv_act(cur, params["bottleneck"], ctx)
+    cur = _conv_act(cur, params["bottleneck"], ctx, bf16)
 
     for i in range(cfg.num_layers):
         if cfg.upsampling == "learned":
@@ -131,30 +166,84 @@ def _forward(params: Params, cfg: Config,
         if not ctx and skip.shape[1] != cur.shape[1]:
             raise ValueError(f"same-padding skip mismatch at layer {i}: "
                              f"{skip.shape[1]} vs {cur.shape[1]}")
-        cur = _conv_act(crop_and_concat(skip, cur), params[f"up_{i}"], ctx)
+        cur = _conv_act(crop_and_concat(skip, cur), params[f"up_{i}"], ctx,
+                        bf16)
 
     cur = crop_and_concat(mix, cur)
     padding = "VALID" if ctx else "SAME"
-    if cfg.output_activation == "tanh":
-        out_act = torch.tanh
-    else:
-        def out_act(x):
-            return audio_clip(x, training=False)
+    cdtype = torch.bfloat16 if bf16 else None
 
-    out: Dict[str, torch.Tensor] = {}
-    if cfg.output_type == "direct":
-        for name in cfg.source_names:
-            out[name] = out_act(conv1d(cur, params[f"out_{name}"],
-                                       padding=padding))
-        return out
-    acc = None
-    for name in cfg.source_names[:-1]:
-        y = out_act(conv1d(cur, params[f"out_{name}"], padding=padding))
-        out[name] = y
-        acc = y if acc is None else acc + y
-    out[cfg.source_names[-1]] = audio_clip(crop(mix, acc.shape[1]) - acc,
-                                           training=False)
-    return out
+    def conv(x, p):
+        return conv1d(x, p, padding=padding, compute_dtype=cdtype)
+    return _output(params, cfg, mix, cur, conv, training=False)
+
+
+def _train_forward(params: Params, cfg: Config,
+                   mix: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``apply_waveunet(training=True)`` in plain,
+    differentiable PyTorch. Decimation is either the strided slice or, with
+    ``decimate_lowering="dilate"``, folded into the next conv as stride 2
+    and dilation 2 (bit-exact either way: out[i] = sum_t x[2i+2t] k[t]).
+    bf16 training convs run wholly in bf16; ``remat`` recomputes each conv
+    block in the backward (``torch.utils.checkpoint``)."""
+    ctx = cfg.context
+    padding = "VALID" if ctx else "SAME"
+    cdtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+    use_dilate = cfg.decimate_lowering == "dilate" and cfg.num_layers > 0
+
+    def conv(x, p, stride=1, dil=1):
+        pad = padding
+        if dil > 1 and padding == "SAME":
+            # the half-rate conv's SAME pads, doubled into full-rate
+            # coordinates (for an even width the asymmetry matters)
+            w = p["kernel"].shape[0]
+            lo = (w - 1) // 2
+            pad = [(2 * lo, 2 * (w - 1 - lo))]
+        return conv1d(x, p, padding=pad, stride=stride, rhs_dilation=dil,
+                      compute_dtype=cdtype, fp32_accum=False)
+
+    def conv_act(x, p):
+        return leaky_relu(conv(x, p))
+
+    def conv_act_dec(x, p):
+        return leaky_relu(conv(x, p, stride=2, dil=2))
+
+    if cfg.remat:
+        conv_act, conv_act_dec = _remat(conv_act), _remat(conv_act_dec)
+
+    skips: List[torch.Tensor] = []
+    cur = mix
+    for i in range(cfg.num_layers):
+        f = conv_act_dec if (use_dilate and i > 0) else conv_act
+        cur = f(cur, params[f"down_{i}"])
+        skips.append(cur)
+        if not use_dilate:
+            cur = cur[:, ::2, :]
+    cur = (conv_act_dec if use_dilate else conv_act)(cur, params["bottleneck"])
+
+    for i in range(cfg.num_layers):
+        if cfg.upsampling == "learned":
+            cur = learned_interp_x2(cur, params[f"interp_{i}"]["weights"],
+                                    ctx)
+        else:
+            cur = bilinear_x2(cur, ctx)
+        skip = skips[-i - 1]
+        if not ctx and skip.shape[1] != cur.shape[1]:
+            raise ValueError(f"same-padding skip mismatch at layer {i}: "
+                             f"{skip.shape[1]} vs {cur.shape[1]}")
+        cur = conv_act(crop_and_concat(skip, cur), params[f"up_{i}"])
+
+    cur = crop_and_concat(mix, cur)
+    return _output(params, cfg, mix, cur, conv, training=True)
+
+
+def _remat(fn):
+    """``fn(x, p)`` recomputed in the backward instead of keeping its
+    activations."""
+    def wrapped(x, p):
+        return checkpoint(lambda x, k, b: fn(x, {"kernel": k, "bias": b}),
+                          x, p["kernel"], p["bias"], use_reentrant=False)
+    return wrapped
 
 
 def io_shapes(cfg: Config):

@@ -7,9 +7,11 @@ straight in: a conv1d kernel is ``[width, in, out]`` over activations
 ``[B, L, C]``; a conv2d kernel ``[h, w, in, out]`` and a conv2d_transpose
 kernel ``[h, w, out, in]`` over ``[B, H, W, C]``.
 
-The plain conv1d serves the convs that no kernel of the port covers (the
-K=1 output convs); every conv followed by LeakyReLU goes through
-``ops/kernels/conv1d_fused.py`` instead. The 2-D convs of the spectrogram
+At inference the plain conv1d serves the convs that no kernel of the port
+covers (the K=1 output convs); every conv followed by LeakyReLU goes
+through ``ops/kernels/conv1d_fused.py`` instead. In training every conv is
+this differentiable one (cuDNN on the card), as the JAX package keeps its
+Pallas kernels out of training. The 2-D convs of the spectrogram
 U-Net are cuDNN calls, as they are ``lax`` convolutions outside any Pallas
 kernel in the JAX package; TF32 follows ``precision_scope``.
 """
@@ -96,14 +98,29 @@ def same_pads(length: int, width: int, stride: int = 1,
 
 
 def conv1d(x: torch.Tensor, params, *, padding: Padding = "VALID",
-           stride: int = 1, rhs_dilation: int = 1) -> torch.Tensor:
+           stride: int = 1, rhs_dilation: int = 1,
+           compute_dtype: Optional[torch.dtype] = None,
+           fp32_accum: bool = True) -> torch.Tensor:
     """1-D convolution over ``[B, W, C]`` with a TF-layout kernel
     ``[w, in, out]``; ``padding`` is "VALID", "SAME" or ``[(lo, hi)]``.
 
-    The bias is added in fp32 and the result returns in the input's dtype.
-    TF32 follows the ambient ``precision_scope``."""
+    ``compute_dtype`` (bfloat16) rounds x and the kernel to it. With
+    ``fp32_accum`` (inference) the conv then runs in fp32 on the rounded
+    values: a bf16 product is exact in fp32, so this is bf16 operands with
+    fp32 accumulation, the JAX package's ``preferred_element_type``.
+    Without it (training) the conv runs wholly in ``compute_dtype``, as the
+    JAX package's differentiated bf16 convs do.
+
+    The bias is added in fp32 (fp64 for a float64 input) and the result
+    returns in the input's dtype. TF32 follows the ambient
+    ``precision_scope``."""
     k, b = params["kernel"], params["bias"]
     in_dtype = x.dtype
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        k = k.to(compute_dtype)
+        if fp32_accum:
+            x, k = x.float(), k.float()
     if padding == "VALID":
         lo, hi = 0, 0
     elif padding == "SAME":
@@ -113,7 +130,8 @@ def conv1d(x: torch.Tensor, params, *, padding: Padding = "VALID",
     xc = F.pad(x.transpose(1, 2), (lo, hi))          # [B, C, W + lo + hi]
     y = F.conv1d(xc, k.permute(2, 1, 0), stride=stride,
                  dilation=rhs_dilation)               # [B, out, W']
-    y = y.transpose(1, 2).float() + b.float()
+    acc = torch.promote_types(in_dtype, torch.float32)
+    y = y.transpose(1, 2).to(acc) + b.to(acc)
     return y.to(in_dtype)
 
 

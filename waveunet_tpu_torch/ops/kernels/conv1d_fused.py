@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from waveunet_tpu_torch.ops.kernels import build
+from waveunet_tpu_torch.ops.kernels import build, refuse_autograd
 
 # Kernel launches since the last reset; chip_smoke.py reads it to show that
 # the main path went through the kernel. A split launch (the GEMM and the
@@ -202,7 +202,9 @@ def conv1d_lrelu_cuda(x: torch.Tensor, w: torch.Tensor,
 
 def conv1d_lrelu(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
-    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    """The kernel for a CUDA tensor, the plain version for a CPU tensor.
+    Either way it refuses an input that requires grad under grad mode."""
+    refuse_autograd("conv1d_lrelu", x, w, b)
     if x.device.type == "cuda":
         return conv1d_lrelu_cuda(x, w, b)
     if x.device.type != "cpu":

@@ -37,7 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from waveunet_tpu_torch.ops.kernels import build
+from waveunet_tpu_torch.ops.kernels import build, refuse_autograd
 
 # Kernel launches since the last reset; chip_smoke.py reads it to show which
 # runs went through the kernel. A call (weight preparation, GEMM and, when
@@ -213,7 +213,9 @@ def conv1d_lrelu_im2col_cuda(x: torch.Tensor, w: torch.Tensor,
 
 def conv1d_lrelu_im2col(x: torch.Tensor, w: torch.Tensor,
                         b: torch.Tensor) -> torch.Tensor:
-    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    """The kernel for a CUDA tensor, the plain version for a CPU tensor.
+    Either way it refuses an input that requires grad under grad mode."""
+    refuse_autograd("conv1d_lrelu_im2col", x, w, b)
     if x.device.type == "cuda":
         return conv1d_lrelu_im2col_cuda(x, w, b)
     if x.device.type != "cpu":

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from waveunet_tpu_torch.ops.kernels import build
+from waveunet_tpu_torch.ops.kernels import build, refuse_autograd
 from waveunet_tpu_torch.ops.upsample import learned_interp_x2
 
 # Kernel launches since the last reset; chip_smoke.py reads it to show that
@@ -53,7 +53,9 @@ def learned_interp_cuda(x: torch.Tensor, weights: torch.Tensor,
 
 def learned_interp(x: torch.Tensor, weights: torch.Tensor,
                    context: bool) -> torch.Tensor:
-    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    """The kernel for a CUDA tensor, the plain version for a CPU tensor.
+    Either way it refuses an input that requires grad under grad mode."""
+    refuse_autograd("learned_interp", x, weights)
     if x.device.type == "cuda":
         return learned_interp_cuda(x, weights, context)
     if x.device.type != "cpu":

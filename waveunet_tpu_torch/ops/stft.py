@@ -105,6 +105,12 @@ def stft(x: torch.Tensor, frame_len: int = FRAME_LEN, hop: int = HOP,
     return torch.fft.rfft(frames * w, n=fft_len or frame_len, dim=-1)
 
 
+def stft_magnitude(x: torch.Tensor, frame_len: int = FRAME_LEN,
+                   hop: int = HOP) -> torch.Tensor:
+    """|stft(x)|: the target of U7a's L1 magnitude loss."""
+    return stft(x, frame_len, hop).abs()
+
+
 def istft(spec: torch.Tensor, frame_len: int = FRAME_LEN, hop: int = HOP,
           fft_len: Optional[int] = None) -> torch.Tensor:
     """[..., F, bins] complex -> [..., hop*(F-1)+frame_len] real, by
