@@ -52,7 +52,9 @@ wall seconds, each under a watchdog:
   8. sweep: the bench's resident sweep (full_44KHz, 65,536-frame window,
      batch 16, the 60 s bench song) on both wires, eager and as one CUDA
      graph (identical bit for bit), against separate() on the card, timed,
-     its kernel launches counted from the graph's replays;
+     its kernel launches counted from the graph's replays; and the int16
+     wire's dequantisers on the card bit for bit against the CPU over all
+     65,536 int16 values, with the network input of one staged song;
   9. graphs: precompile() on the served engine, then the three requests
      again through the CUDA graphs and pinned copies, identical bit for bit
      to the eager run; walls, device time and idle share beside the eager
@@ -77,9 +79,22 @@ wall seconds, each under a watchdog:
      Adam, steps/s, trained audio-s/s, the idle share over a fused chunk,
      peak memory, and validation through the conv and interp kernels
      against the plain path (every eval batch's outputs and loss, and the
-     mean), with its launch counts.
+     mean), with its launch counts;
+  14. eval: a synthesised MUSDB test set (2 songs of 20 s, stereo 44.1 kHz,
+     noise stems, one song's vocals silent for 2 s and near-silent for 2 s)
+     through evaluate_musdb with full_44KHz at full width, once per scorer
+     (host fp64 in its spawned pool, tpu_bss=True, tpu_bss="f64"), each
+     run's launches equal to its chunks x (25, 12); the same separations
+     against the plain path; the fp32 scorer against the host on every
+     window its gate left on the card (0.01 dB + rtol 1e-4) and equal to
+     it on the flagged ones, the fp64 scorer against the host's exact
+     assembly (1e-3 dB) and its SDR against the host's (1e-9 dB);
+     windows/s and the separation and scoring walls per track;
+  15. cli: predict and evaluate (random_init=1, max_tracks=1, tpu_bss=1)
+     through cli.main, their WAVs and JSON equal byte for byte to the
+     library calls'.
 
-Each of the paths of phases 5, 8 to 12 and 13's optimise() is driven with
+Each of the paths of phases 5, 8 to 15 and 13's optimise() is driven with
 the kernels' launch counts set to 0 just before it and read just after (a
 graph replay adds the launches its capture recorded).
 
@@ -106,7 +121,7 @@ SEED = 1234
 LIMITS = {"nvidia-smi": 30, "build": 400, "kernels": 120, "timing": 180,
           "im2col": 240, "serve": 420, "forward": 300, "presets": 240,
           "sweep": 240, "graphs": 240, "spectro": 300, "stream": 240,
-          "m6": 120, "bench": 420, "train": 150}
+          "m6": 120, "bench": 420, "train": 150, "eval": 420, "cli": 180}
 
 # Peaks of one H100 SXM (NVIDIA data sheet) for the bounds: dense TF32 on
 # the tensor cores (the conv kernel computes in 3xTF32: three TF32 products
@@ -908,6 +923,15 @@ def main() -> int:
                                 kernels, np, torch, dev)
         path_launches["train"] = train_row["launches"]
 
+    with phase("eval"):
+        eval_row = eval_check(get_config, model, conv1d_fused, interp,
+                              kernels, np, torch)
+        path_launches["eval"] = eval_row["launches"]
+
+    with phase("cli"):
+        cli_row = cli_check(get_config, kernels, eval_row, np, torch)
+        path_launches["cli"] = cli_row["launches"]
+
     def entry(name, rows, source, replaces, n_launch, **extra):
         fwd = [r for r in forward_rows if r["kernel"] == name]
         return {
@@ -974,6 +998,8 @@ def main() -> int:
     print(f"m6: {json.dumps(m6_row)}", flush=True)
     print(f"bench: {json.dumps(bench_rec)}", flush=True)
     print(f"train: {json.dumps(train_row)}", flush=True)
+    print(f"eval: {json.dumps(eval_row)}", flush=True)
+    print(f"cli: {json.dumps(cli_row)}", flush=True)
     print(f"launches by path: {json.dumps(path_launches)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1212,6 +1238,8 @@ def sweep_check(get_config, model, Separator, conv1d_fused, interp, kernels,
         with plain_path(model, conv1d_fused, interp):
             plain = sep.separate(song, sr)
         swept = {k: graphed[k].cpu().numpy() for k in names}
+        wire_row = (wire_check(sep, song, np, torch) if wire == "int16"
+                    else None)
         errs = {k: float(np.abs(swept[k] - host[k]).max()) for k in names}
         tols = {k: (SWEEP_DIFF_ATOL if wire == "int16" and k == names[-1]
                     else SWEEP_ATOL) for k in names}
@@ -1244,6 +1272,8 @@ def sweep_check(get_config, model, Separator, conv1d_fused, interp, kernels,
                "graph_audio_s_per_s": 60.0 / (graph_ms / 1e3),
                "replays": graph.replays, "launches_per_replay":
                graph.launches, "launches": counted}
+        if wire_row is not None:
+            row["wire_dequantiser"] = wire_row
         print(f"sweep {json.dumps(row)}", flush=True)
         if not same:
             fail(f"the graphed sweep ({wire}) differs from the eager sweep")
@@ -1259,6 +1289,58 @@ def sweep_check(get_config, model, Separator, conv1d_fused, interp, kernels,
                  f"{per_graph}")
         rows.append(row)
     return rows
+
+
+def wire_check(sep, song, np, torch):
+    """The int16 wire's dequantisers on the card against the CPU, bit for
+    bit: ``wire.from_wire`` and ``wire.dequantize`` (the engine's) over all
+    65,536 int16 values, both also against numpy's float32 division (the
+    JAX package's x / 32767.0), and the network input ``Separator._frame``
+    builds from one staged song (``_chunk_fwd``'s float windows) on the
+    card against the same on the CPU. Also counts how many int16 values the
+    old expression, a division by the host scalar 32767.0, got wrong on the
+    card (it multiplies by the reciprocal)."""
+    from waveunet_tpu_torch.infer import wire
+    from waveunet_tpu_torch.infer.engine import Separator, window_positions
+
+    def differ(x, y):
+        """Positions where x and y are not the same float32, bit for bit
+        (NaN against NaN counts as the same)."""
+        x, y = x.detach().cpu(), y.detach().cpu()
+        same = (x.view(torch.int32) == y.view(torch.int32)) | (
+            x.isnan() & y.isnan())
+        return int((~same).sum())
+
+    w = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    wd = w.to(sep.device)
+    div = torch.from_numpy(w.numpy().astype(np.float32) / np.float32(32767.0))
+    sentinel = torch.where(w == wire.INT16_NONFINITE,
+                           torch.full_like(div, float("nan")), div)
+    row = {}
+    for name, fn, ref in (("from_wire", wire.from_wire, sentinel),
+                          ("dequantize", wire.dequantize, div)):
+        card, cpu = fn(wd), fn(w)
+        row[name] = {"card_vs_cpu_differ": differ(card, cpu),
+                     "cpu_vs_numpy_differ": differ(cpu, ref)}
+    row["old_host_scalar_division_differ_on_card"] = differ(
+        wd.to(torch.float32) / 32767.0, div)
+    # the network input of one staged song, card against CPU
+    cpu_sep = Separator(sep.cfg, {k: {n: t.cpu() for n, t in v.items()}
+                                  for k, v in sep.params.items()},
+                        device="cpu")
+    staged = sep.stage_resident(song)
+    pos = window_positions(len(song), sep.out_len)[:sep.batch]
+    pos_t = torch.from_numpy(pos)
+    card_in = sep._frame(staged, pos_t.to(sep.device))
+    cpu_in = cpu_sep._frame(staged.cpu(), pos_t)
+    row["chunk_input_windows"] = int(len(pos))
+    row["chunk_input_differ"] = differ(card_in, cpu_in)
+    print(f"wire dequantiser: {json.dumps(row)}", flush=True)
+    if any(v["card_vs_cpu_differ"] or v["cpu_vs_numpy_differ"]
+           for v in (row["from_wire"], row["dequantize"])) \
+            or row["chunk_input_differ"]:
+        fail("the int16 wire's dequantiser on the card differs from the CPU")
+    return row
 
 
 def graphs_check(sep, requests, sr, kernels, np, torch):
@@ -2072,6 +2154,326 @@ def train_check(get_config, model, conv1d_fused, interp, kernels, np, torch,
         import shutil
         shutil.rmtree(root, ignore_errors=True)
     return row
+
+
+# -- phases eval and cli --------------------------------------------------------
+
+EVAL_SONGS = 2
+EVAL_SONG_S = 20
+EVAL_SILENT_S = (6, 8)   # song0's vocals: silent over these whole windows
+EVAL_QUIET_S = (8, 10)   # and near-silent here, at EVAL_QUIET_GAIN: the
+EVAL_QUIET_GAIN = 1e-3   # catastrophic class the fp32 scorer's gate reroutes
+FP32_ATOL, FP32_RTOL = 0.01, 1e-4  # tests/test_bsseval_tpu.py:29-35
+F64_ATOL = 1e-3          # against the host's exact assembly
+F64_SDR_ATOL = 1e-9      # SDR against the host's FFT assembly (solve-free)
+FLAGGED_ATOL = 1e-9      # windows the fp32 gate sent to the host fp64 scorer
+HARNESS_ATOL = 1e-6      # the harness's JSON against the same scorer called
+                         # directly on the same estimates
+DB_CAP = 250.0           # tests/test_bsseval_tpu64.py: a denominator at the
+                         # rounding floor (a silent source leaves no
+                         # interference space) makes the dB value solver
+                         # noise past this, "effectively infinite"
+
+
+def make_eval_db(root, sr, write_wav, np):
+    """A MUSDB test set in the decoded-WAV layout: EVAL_SONGS songs of
+    EVAL_SONG_S s, stereo, vocals and accompaniment of seeded broadband
+    noise (well-conditioned Grams), the mixture their clipped sum; song0's
+    vocals silent over EVAL_SILENT_S (NaN rows) and near-silent over
+    EVAL_QUIET_S (windows for the fp32 scorer's gate)."""
+    rng = np.random.default_rng(SEED)
+    n = EVAL_SONG_S * sr
+    songs = []
+    for i in range(EVAL_SONGS):
+        d = os.path.join(root, "test", f"song{i}")
+        os.makedirs(d)
+        voc = 0.1 * rng.standard_normal((n, 2))
+        acc = 0.1 * rng.standard_normal((n, 2))
+        if i == 0:
+            voc[EVAL_SILENT_S[0] * sr:EVAL_SILENT_S[1] * sr] = 0.0
+            voc[EVAL_QUIET_S[0] * sr:EVAL_QUIET_S[1] * sr] *= EVAL_QUIET_GAIN
+        write_wav(os.path.join(d, "vocals.wav"), voc, sr)
+        write_wav(os.path.join(d, "accompaniment.wav"), acc, sr)
+        write_wav(os.path.join(d, "mixture.wav"),
+                  np.clip(voc + acc, -1.0, 1.0), sr)
+        songs.append(f"song{i}")
+    return songs
+
+
+def timed_host_score(refs, ests, rate, assembly):
+    """The host fp64 scorer on one track, and its wall seconds (runs in a
+    spawned worker)."""
+    from waveunet_tpu_torch.eval.bsseval import bss_eval_framewise
+
+    t0 = time.perf_counter()
+    res = bss_eval_framewise(refs, ests, rate, assembly=assembly)
+    return res, time.perf_counter() - t0
+
+
+def track_frames(path, np):
+    """{metric: [S, frames]} of a per-track JSON, None as NaN."""
+    with open(path) as f:
+        targets = json.load(f)["targets"]
+    return {k: np.array([[np.nan if fr["metrics"][k] is None
+                          else fr["metrics"][k] for fr in t["frames"]]
+                         for t in targets])
+            for k in ("SDR", "ISR", "SIR", "SAR")}
+
+
+def db_diff(a, b, np, cap=None):
+    """Largest |a - b| in dB, NaN against NaN equal, NaN on one side only
+    infinitely far; ``cap`` clips both first."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if cap is not None:
+        a, b = np.minimum(a, cap), np.minimum(b, cap)
+    if not np.array_equal(np.isnan(a), np.isnan(b)):
+        return float("inf")
+    d = np.abs(a - b)
+    d[np.isnan(a)] = 0.0
+    return float(d.max()) if d.size else 0.0
+
+
+def eval_check(get_config, model, conv1d_fused, interp, kernels, np, torch):
+    """Phase eval: evaluate_musdb with full_44KHz at full width and seeded
+    weights on a synthesised test set, once per scorer (host fp64 in its
+    spawned pool, the fp32 device scorer, the fp64 device scorer), each run
+    with the launch counts set to 0 just before it; then the same songs
+    separated and scored directly, timed, and held: the separation against
+    the plain path, the fp32 scorer against the host on every window its
+    gate left on the device and equal to it where the gate flagged, the
+    fp64 scorer against the host's exact assembly, its SDR against the
+    host's FFT assembly. Returns the phase's row; its temporary directory
+    (``row["root"]``) is the cli phase's, which removes it."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from waveunet_tpu_torch.data.audio_io import write_wav
+    from waveunet_tpu_torch.eval import harness
+    from waveunet_tpu_torch.eval.bsseval_tpu import (bss_eval_framewise_tpu,
+                                                     device_window_metrics)
+    from waveunet_tpu_torch.eval.bsseval_tpu64 import (
+        bss_eval_framewise_tpu64)
+    from waveunet_tpu_torch.infer.engine import Separator, window_positions
+    from waveunet_tpu_torch.train.loop import init_state
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        cfg = get_config("full_44KHz", musdb_path=os.path.join(root, "db"))
+        sr = cfg.expected_sr
+        songs = make_eval_db(cfg.musdb_path, sr, write_wav, np)
+        # cfg.seed's weights: those of the cli phase's random_init=1
+        params = init_state(cfg).params
+        sep = Separator(cfg, params)
+
+        def chunks(n):
+            n_win = len(window_positions(max(n, sep.in_len), sep.out_len))
+            return len(sep._chunk_sizes(n_win))
+
+        # the self-check's 2 s, then every song
+        n_chunks = chunks(2 * sr) + EVAL_SONGS * chunks(EVAL_SONG_S * sr)
+        want = {"conv1d_lrelu": (2 * cfg.num_layers + 1) * n_chunks,
+                "learned_interp": cfg.num_layers * n_chunks,
+                "conv1d_lrelu_im2col": 0}
+        runs = {}
+        for name, tpu_bss in (("host", False), ("fp32", True),
+                              ("f64", "f64")):
+            out = os.path.join(root, f"est_{name}")
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            stats = harness.evaluate_musdb(cfg, params, output_path=out,
+                                           tpu_bss=tpu_bss)
+            wall = time.perf_counter() - t0
+            counted = kernels.launch_counts()
+            runs[name] = {
+                "wall_s": wall, "launches": counted,
+                "frames": {s: track_frames(os.path.join(out, "test",
+                                                        f"{s}.json"), np)
+                           for s in songs},
+                "aggregate": [[float(v) for v in st] for st in stats]}
+            print(f"eval evaluate_musdb tpu_bss={tpu_bss!r}: {wall:.3f} s, "
+                  f"launches {counted} (expected {want}), aggregate "
+                  f"{runs[name]['aggregate']}", flush=True)
+            if counted != want:
+                fail(f"evaluate_musdb ({name}) did not launch conv and "
+                     f"interp once per layer of its {n_chunks} chunks")
+            if len(stats) != 2 or not all(np.isfinite(st[0])
+                                          and np.isfinite(st[2])
+                                          for st in stats):
+                fail(f"evaluate_musdb ({name}) aggregated to {stats}")
+
+        # the same songs separated and scored directly, timed
+        tols = plain_tols(cfg)
+        pool = ProcessPoolExecutor(max_workers=2 * EVAL_SONGS,
+                                   mp_context=mp.get_context("spawn"))
+        per_track, host_futs = [], []
+        try:
+            for song, mix, rate, targets in harness.iter_tracks(
+                    cfg.musdb_path, "test"):
+                t0 = time.perf_counter()
+                preds = harness.separate_track(sep, cfg, mix, rate)
+                sep_wall = time.perf_counter() - t0
+                with plain_path(model, conv1d_fused, interp):
+                    plain = harness.separate_track(sep, cfg, mix, rate)
+                err = {k: float(np.abs(preds[k] - plain[k]).max())
+                       for k in preds}
+                if any(not err[k] <= tols[k] for k in err):
+                    fail(f"eval: {song}'s separation disagrees with the "
+                         f"plain path: {err} (tol {tols})")
+                _, refs, ests = harness.stack_sources(cfg, targets, preds,
+                                                      mix.shape[0])
+                host_futs.append([pool.submit(timed_host_score, refs, ests,
+                                              rate, a)
+                                  for a in ("fft", "exact")])
+                row = {"song": song, "windows": refs.shape[1] // rate,
+                       "separate_s": sep_wall, "max_abs_err_vs_plain": err,
+                       "plain_tol": tols}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fp32 = bss_eval_framewise_tpu(refs, ests, rate)
+                row["fp32_score_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                f64 = bss_eval_framewise_tpu64(refs, ests, rate)
+                row["f64_score_s"] = time.perf_counter() - t0
+                _, gates = device_window_metrics(refs, ests, rate)
+                row["gates"] = gates.tolist()
+                per_track.append((row, fp32, f64))
+            host = [[f.result() for f in fs] for fs in host_futs]
+        finally:
+            pool.shutdown()
+
+        rows = []
+        for (row, fp32, f64), ((fft, fft_s), (exact, exact_s)) in zip(
+                per_track, host):
+            song = row["song"]
+            row["host_score_s"], row["host_exact_score_s"] = fft_s, exact_s
+            flagged = ~(np.asarray(row["gates"]) < 0.1)
+            keep = ~flagged
+            row["flagged_windows"] = np.nonzero(flagged)[0].tolist()
+            h, d32, d64 = (runs[k]["frames"][song]
+                           for k in ("host", "fp32", "f64"))
+            # the harness's JSONs hold what the direct calls scored
+            same = {k: max(db_diff(d32[k], fp32[k], np),
+                           db_diff(d64[k], f64[k], np),
+                           db_diff(h[k], fft[k], np)) for k in h}
+            # A silent reference leaves the other sources no interference
+            # space: their SIR denominator sits at the rounding floor, and
+            # the JAX package's test of that case holds SDR, ISR and SAR
+            # only (tests/test_bsseval_tpu.py:59-73); so does this one.
+            silent = np.isnan(h["SDR"]).any(0)
+            fp32_err, flagged_err, f64_err = {}, {}, {}
+            for k in h:
+                cols = keep & ~silent if k == "SIR" else keep
+                a, b = d32[k][:, cols], h[k][:, cols]
+                fp32_err[k] = db_diff(a, b, np)
+                both = np.isnan(a) & np.isnan(b)
+                over = np.abs(a - b) - (FP32_ATOL + FP32_RTOL * np.abs(b))
+                if fp32_err[k] == float("inf") or (over[~both] > 0).any():
+                    fail(f"eval: {song} {k}: the fp32 scorer is "
+                         f"{fp32_err[k]} dB from the host on a window its "
+                         f"gate did not flag")
+                flagged_err[k] = db_diff(d32[k][:, flagged],
+                                         h[k][:, flagged], np)
+                f64_err[k] = db_diff(d64[k], exact[k], np, cap=DB_CAP)
+            f64_sdr = db_diff(d64["SDR"], h["SDR"], np)
+            row.update({"harness_vs_direct_db": same,
+                        "fp32_vs_host_unflagged_db": fp32_err,
+                        "fp32_vs_host_sir_silent_ref_windows_db": db_diff(
+                            d32["SIR"][:, keep & silent],
+                            h["SIR"][:, keep & silent], np),
+                        "fp32_vs_host_flagged_db": flagged_err,
+                        "f64_vs_host_exact_db": f64_err,
+                        "f64_sdr_vs_host_fft_db": f64_sdr,
+                        "nan_windows": int(silent.sum())})
+            print(f"eval {json.dumps(row)}", flush=True)
+            if any(not v <= HARNESS_ATOL for v in same.values()):
+                fail(f"eval: {song}: the harness's JSON differs from the "
+                     f"direct scores {same}")
+            if any(not v <= FLAGGED_ATOL for v in flagged_err.values()):
+                fail(f"eval: {song}: flagged windows differ from the host's")
+            if any(not v <= F64_ATOL for v in f64_err.values()):
+                fail(f"eval: {song}: the fp64 scorer is {f64_err} dB from "
+                     f"the host's exact assembly")
+            if not f64_sdr <= F64_SDR_ATOL:
+                fail(f"eval: {song}: the fp64 scorer's SDR is {f64_sdr} dB "
+                     f"from the host's")
+            rows.append(row)
+        if not any(r["nan_windows"] for r in rows) or not any(
+                r["flagged_windows"] for r in rows):
+            fail("eval: the silent stretches gave no NaN row or no window "
+                 "flagged by the fp32 scorer's gate")
+        windows = sum(r["windows"] for r in rows)
+        summary = {name: {
+            "evaluate_musdb_wall_s": runs[name]["wall_s"],
+            "aggregate": runs[name]["aggregate"],
+            "score_s_per_track": [r[key] for r in rows],
+            "separate_s_per_track": [r["separate_s"] for r in rows],
+            "windows_per_s": windows / sum(r[key] for r in rows)}
+            for name, key in (("host", "host_score_s"),
+                              ("fp32", "fp32_score_s"),
+                              ("f64", "f64_score_s"))}
+        summary["host"]["exact_score_s_per_track"] = [
+            r["host_exact_score_s"] for r in rows]
+        print(f"eval summary: {json.dumps(summary)}", flush=True)
+        return {"tracks": rows, "scorers": summary, "windows": windows,
+                "chunks_per_run": n_chunks,
+                "launches": runs["host"]["launches"],
+                "launches_by_scorer": {k: r["launches"]
+                                       for k, r in runs.items()},
+                "root": root, "params": params}
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+
+
+def cli_check(get_config, kernels, eval_row, np, torch):
+    """Phase cli: ``predict`` and ``evaluate`` (random_init=1, max_tracks=1,
+    tpu_bss=1) through ``cli.main`` in this process, their WAVs equal byte
+    for byte to ``separate_file``'s with the same seeded weights and their
+    JSON to the eval phase's ``evaluate_musdb(tpu_bss=True)``; the launch
+    counts of both commands."""
+    import shutil
+
+    from waveunet_tpu_torch import cli
+    from waveunet_tpu_torch.infer.engine import separate_file
+
+    root = eval_row.pop("root")
+    params = eval_row.pop("params")
+    try:
+        db = os.path.join(root, "db")
+        mix = os.path.join(db, "test", "song0", "mixture.wav")
+        cfg = get_config("full_44KHz", musdb_path=db)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        cli.main(["predict", "full_44KHz", "random_init=1",
+                  f"input_path={mix}",
+                  f"output_path={os.path.join(root, 'cli_predict')}"])
+        cli.main(["evaluate", "full_44KHz", f"musdb_path={db}",
+                  "random_init=1", "max_tracks=1", "tpu_bss=1",
+                  f"output_path={os.path.join(root, 'cli_eval')}"])
+        wall = time.perf_counter() - t0
+        counted = kernels.launch_counts()
+        separate_file(cfg, params, mix,
+                      output_path=os.path.join(root, "lib_predict"))
+        same = {}
+        for s in cfg.source_names:
+            a, b = (open(os.path.join(root, d, f"mixture.wav_{s}.wav"),
+                         "rb").read() for d in ("cli_predict", "lib_predict"))
+            same[f"{s}.wav"] = a == b
+        a, b = (open(os.path.join(root, d, "test", "song0.json"), "rb").read()
+                for d in ("cli_eval", "est_fp32"))
+        same["song0.json"] = a == b
+        row = {"wall_s": wall, "outputs_equal_library": same,
+               "launches": counted}
+        print(f"cli {json.dumps(row)}", flush=True)
+        if not all(same.values()):
+            fail(f"cli: outputs differ from the library calls': {same}")
+        if not (counted["conv1d_lrelu"] > 0 and counted["learned_interp"] > 0):
+            fail("cli: the commands launched no conv or interp kernel")
+        return row
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 @contextlib.contextmanager

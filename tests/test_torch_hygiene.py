@@ -64,10 +64,15 @@ def test_package_imports_without_jax():
             "waveunet_tpu_torch.data.device_cache, "
             "waveunet_tpu_torch.data.pipeline, "
             "waveunet_tpu_torch.data.ingest, waveunet_tpu_torch.data.cache, "
-            "waveunet_tpu_torch.data.sampler\n"
+            "waveunet_tpu_torch.data.sampler, waveunet_tpu_torch.cli, "
+            "waveunet_tpu_torch.__main__, waveunet_tpu_torch.eval.bsseval, "
+            "waveunet_tpu_torch.eval.aggregate, "
+            "waveunet_tpu_torch.eval.bsseval_tpu, "
+            "waveunet_tpu_torch.eval.bsseval_tpu64, "
+            "waveunet_tpu_torch.eval.harness, waveunet_tpu_torch.eval.plot\n"
             "assert w.optimise is waveunet_tpu_torch.train.loop.optimise\n"
             "assert w.Separator is waveunet_tpu_torch.infer.engine.Separator\n"
-            "assert not any(m.startswith(('jax', 'triton')) "
+            "assert not any(m.startswith(('jax', 'triton', 'matplotlib')) "
             "for m in sys.modules if sys.modules[m] is not None)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -105,12 +110,20 @@ def test_build_without_nvcc_raises(monkeypatch):
                                    "griffin_lim", "optimise", "init_state",
                                    "DeviceBank", "EvalBank",
                                    "make_train_step", "make_scanned_epoch",
-                                   "make_eval_step"])
+                                   "make_eval_step", "evaluate_musdb",
+                                   "bss_eval_framewise_tpu",
+                                   "bss_eval_framewise_tpu64",
+                                   "draw_spectrogram"])
 def test_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
     """No device argument means the card; without one they raise and do not
     fall back to the CPU."""
     import waveunet_tpu_torch as w
     from waveunet_tpu_torch.data.audio_io import write_wav
+    from waveunet_tpu_torch.eval.bsseval_tpu import bss_eval_framewise_tpu
+    from waveunet_tpu_torch.eval.bsseval_tpu64 import (
+        bss_eval_framewise_tpu64)
+    from waveunet_tpu_torch.eval.harness import evaluate_musdb
+    from waveunet_tpu_torch.eval.plot import draw_spectrogram
     from waveunet_tpu_torch.ops.stft import griffin_lim
     from waveunet_tpu_torch.train.step import (make_eval_step,
                                                make_scanned_epoch,
@@ -122,6 +135,7 @@ def test_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
                              device="cpu")
     wav = str(tmp_path / "mix.wav")
     write_wav(wav, np.zeros((1000, 2), np.float32), 44100)
+    refs = np.ones((2, 1000, 1), np.float32)
     calls = {
         "init_waveunet": lambda: w.init_waveunet(torch.Generator(), cfg),
         "params_from_numpy": lambda: w.params_from_numpy(
@@ -145,6 +159,13 @@ def test_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
         "make_scanned_epoch": lambda: make_scanned_epoch(
             cfg, 1e-4, 2, lambda key, step: {}),
         "make_eval_step": lambda: make_eval_step(cfg),
+        "evaluate_musdb": lambda: evaluate_musdb(
+            cfg, params, output_path=str(tmp_path / "logs")),
+        "bss_eval_framewise_tpu": lambda: bss_eval_framewise_tpu(
+            refs, refs, 1000),
+        "bss_eval_framewise_tpu64": lambda: bss_eval_framewise_tpu64(
+            refs, refs, 1000),
+        "draw_spectrogram": lambda: draw_spectrogram(wav),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -161,3 +182,25 @@ def test_wrappers_refuse_other_devices():
                                   torch.zeros(4, device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         interp.learned_interp(x, torch.zeros(2, device="meta"), True)
+
+
+@pytest.mark.parametrize("command", ["predict", "evaluate", "stream",
+                                     "profile", "train"])
+def test_cli_without_a_card_exits_2(monkeypatch, tmp_path, capsys, command):
+    """Without ``platform=cpu`` a command runs on the card; with none it
+    exits 2 saying how to run on the host, before it touches any file."""
+    from waveunet_tpu_torch import cli
+    from waveunet_tpu_torch.data.audio_io import write_wav
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wav = str(tmp_path / "mix.wav")
+    write_wav(wav, np.zeros((1000, 2), np.float32), 44100)
+    with pytest.raises(SystemExit) as e:
+        cli.main([command, "full", "num_layers=2", f"input_path={wav}",
+                  "random_init=1", f"output_path={tmp_path / 'out'}",
+                  f"log_dir={tmp_path / 'logs'}",
+                  f"data_path={tmp_path / 'cache'}",
+                  f"musdb_path={tmp_path / 'db'}"])
+    assert e.value.code == 2
+    assert "platform=cpu" in capsys.readouterr().err
+    assert sorted(os.listdir(tmp_path)) == ["mix.wav"]

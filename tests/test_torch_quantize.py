@@ -82,3 +82,21 @@ def test_device_quantiser_rounds_half_to_even_with_a_sentinel():
     back = from_wire(w)
     assert torch.isnan(back[5:]).all() and back[3] == 1.0
     np.testing.assert_array_equal(from_wire_np(w.numpy()), back.numpy())
+
+
+def test_dequantisers_divide_like_the_jax_package():
+    """Every int16 value back to float32 is the float32 quotient x / 32767
+    (the JAX package's ``x / 32767.0``): ``dequantize`` divides by a 0-d
+    tensor on the operand's device, which a CUDA tensor does not turn into
+    a multiplication by the reciprocal, and ``from_wire`` adds the NaN
+    sentinel; ``from_wire_np`` agrees."""
+    from waveunet_tpu_torch.infer.wire import dequantize, full_scale
+
+    w = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    want = w.numpy().astype(np.float32) / np.float32(32767.0)
+    np.testing.assert_array_equal(dequantize(w).numpy(), want)
+    want[0] = np.nan  # INT16_NONFINITE
+    np.testing.assert_array_equal(from_wire(w).numpy(), want)
+    np.testing.assert_array_equal(from_wire_np(w.numpy()), want)
+    cpu = torch.device("cpu")
+    assert full_scale(cpu) is full_scale(cpu) and full_scale(cpu).ndim == 0

@@ -14,6 +14,9 @@ spectrogram U-Net), TensorFlow-free checkpoint loaders and the bench
 early-stopped rounds, checkpoints, resume), ``init_state``, and the
 device-resident data banks ``DeviceBank`` and ``EvalBank``; the training
 step runs plain differentiable ops, validation runs through the kernels.
+Evaluation: ``evaluate_musdb`` (``eval/``: the host fp64 BSS-Eval scorer,
+the fp32 and fp64 device scorers). The command line: ``python -m
+waveunet_tpu_torch <command>`` (``cli.py``).
 
 Importing the package loads only the configuration; the models, the engine
 and the kernels load on first use.
@@ -39,6 +42,7 @@ _LAZY = {
     "init_state": "waveunet_tpu_torch.train.loop",
     "DeviceBank": "waveunet_tpu_torch.data.device_cache",
     "EvalBank": "waveunet_tpu_torch.data.device_cache",
+    "evaluate_musdb": "waveunet_tpu_torch.eval.harness",
 }
 
 __all__ = ["Config", "get_config", "preset_names", *_LAZY, "__version__"]

@@ -26,3 +26,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def refuse_multi_gpu(mesh) -> None:
+    """Raise for a ``mesh`` or an initialised process group of more than one
+    process: multi-GPU is not ported, and the port runs on one device."""
+    import torch.distributed as dist
+
+    if mesh is not None or (dist.is_available() and dist.is_initialized()
+                            and dist.get_world_size() > 1):
+        raise NotImplementedError(
+            "multi-GPU is not ported: waveunet_tpu_torch runs on one device")

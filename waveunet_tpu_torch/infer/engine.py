@@ -42,8 +42,9 @@ import torch
 
 from waveunet_tpu_torch.config import Config
 from waveunet_tpu_torch.device import DeviceLike, resolve_device
-from waveunet_tpu_torch.infer.wire import (INT16_NONFINITE, from_wire,
-                                           from_wire_np, quantize_int16,
+from waveunet_tpu_torch.infer.wire import (INT16_NONFINITE, dequantize,
+                                           from_wire, from_wire_np,
+                                           full_scale, quantize_int16,
                                            to_wire)
 from waveunet_tpu_torch.ops import shapes
 from waveunet_tpu_torch.ops.kernels import Graph, capture
@@ -141,20 +142,24 @@ class Separator:
             drop=cfg.source_names[-1] if self._host_reconstruct_last
             else None)
         self._arange_in = torch.arange(self.in_len, device=self.device)
+        full_scale(self._arange_in.device)  # before any capture divides by it
         self._graphs: Dict[Tuple[str, int], Graph] = {}
         self._static_song: Optional[torch.Tensor] = None
         self._host_bufs: Dict[str, torch.Tensor] = {}
         self._copy_stream = None
 
     # -- the chunk program ---------------------------------------------------
+    def _frame(self, song: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """The float32 network input: ``len(pos)`` windows of the device
+        song (or slab) at the device positions ``pos``."""
+        wins = song[pos[:, None] + self._arange_in]  # [k, in_len, C]
+        return dequantize(wins) if wins.dtype == torch.int16 else wins
+
     def _chunk_fwd(self, params, song: torch.Tensor,
                    pos: torch.Tensor) -> Tensors:
         """Frame ``len(pos)`` windows from the device song (or slab) at the
         device positions ``pos``, run them, and quantise for the wire."""
-        wins = song[pos[:, None] + self._arange_in]  # [k, in_len, C]
-        if wins.dtype == torch.int16:
-            wins = wins.to(torch.float32) / 32767.0
-        out = self._forward_fn(params, wins)
+        out = self._forward_fn(params, self._frame(song, pos))
         if self._wire16:
             out = {k: to_wire(v) for k, v in out.items()}
         return out
@@ -299,7 +304,7 @@ class Separator:
             if reconstruct_last:
                 mix = song[pad:pad + n_total]
                 if mix.dtype == torch.int16:
-                    mix = mix.to(torch.float32) / 32767.0
+                    mix = dequantize(mix)
                 out[names[-1]] = torch.clamp(
                     mix - sum(out[s] for s in names[:-1]), -1.0, 1.0)
             checksum = sum(v.sum() for v in out.values())

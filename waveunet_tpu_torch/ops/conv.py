@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import torch
@@ -37,20 +38,33 @@ Padding = Union[str, Sequence[Tuple[int, int]]]
 ALLOW_TF32 = {None: False, "highest": False, "high": False, "default": True}
 
 
+# TF32 switches are process-wide, and the device scorer of the eval harness
+# (eval/bsseval_tpu.py) runs in a thread beside the separating one: each
+# holds this lock while its switches are set, so neither enqueues work under
+# the other's setting.
+_TF32_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
-def precision_scope(conv_precision: Optional[str]) -> Iterator[None]:
-    """Set cuDNN's and cuBLAS's TF32 switches for ``conv_precision`` while
-    the block runs, and restore the caller's settings after it."""
-    allow_tf32 = ALLOW_TF32[conv_precision]
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = allow_tf32
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
+def tf32_scope(allow_tf32: bool) -> Iterator[None]:
+    """Set cuDNN's and cuBLAS's TF32 switches to ``allow_tf32`` while the
+    block runs, holding them against other threads' scopes, and restore the
+    caller's settings after it."""
+    with _TF32_LOCK:
+        prev = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+        try:
+            yield
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+def precision_scope(conv_precision: Optional[str]):
+    """``tf32_scope`` for ``conv_precision``."""
+    return tf32_scope(ALLOW_TF32[conv_precision])
 
 
 def glorot_uniform(shape: Sequence[int], generator: torch.Generator,

@@ -33,7 +33,8 @@ import torch
 
 from waveunet_tpu_torch.config import Config
 from waveunet_tpu_torch.data.pipeline import BatchPipeline
-from waveunet_tpu_torch.device import DeviceLike, resolve_device
+from waveunet_tpu_torch.device import (DeviceLike, refuse_multi_gpu,
+                                       resolve_device)
 from waveunet_tpu_torch.ops import shapes
 from waveunet_tpu_torch.train import checkpoint as ckpt
 from waveunet_tpu_torch.train.metrics import MetricLogger
@@ -193,23 +194,13 @@ def evaluate(cfg: Config, params, model_state, eval_step,
     return total
 
 
-def _refuse_multi_gpu(mesh) -> None:
-    import torch.distributed as dist
-
-    if mesh is not None or (dist.is_available() and dist.is_initialized()
-                            and dist.get_world_size() > 1):
-        raise NotImplementedError(
-            "multi-GPU is not ported: waveunet_tpu_torch trains on one "
-            "device")
-
-
 def optimise(cfg: Config, experiment_id: Optional[str] = None, mesh=None,
              resume_path: Optional[str] = None,
              max_epochs_per_round: Optional[int] = None,
              device: DeviceLike = None) -> Tuple[str, float]:
     """Two early-stopped rounds of training; returns (best checkpoint path,
     test loss of the best checkpoint)."""
-    _refuse_multi_gpu(mesh)
+    refuse_multi_gpu(mesh)
     dev = resolve_device(device)
     if experiment_id is None:
         experiment_id = str(np.random.randint(0, 1_000_000))
