@@ -92,9 +92,22 @@ wall seconds, each under a watchdog:
      windows/s and the separation and scoring walls per track;
   15. cli: predict and evaluate (random_init=1, max_tracks=1, tpu_bss=1)
      through cli.main, their WAVs and JSON equal byte for byte to the
-     library calls'.
+     library calls';
+  16. dist: data parallelism (waveunet_tpu_torch/parallel/) at full_44KHz
+     full width (12 layers, 24 filters, training window 16,384, batch 16,
+     infer_batch 16, seeded weights). (a) A process group of one rank over
+     NCCL, destroyed afterwards: Separator(mesh) on the 30 s request, the
+     mesh train step (loss and every parameter), and the fused epoch over
+     a one-rank ShardedBank with its NCCL all-reduce captured in the CUDA
+     graph against the eager mesh loop, each bit for bit; pod_weighted_mean
+     exact in float64; a step's ms with and without the mesh. (b) Two
+     spawned ranks sharing the card over gloo, 8 rows each of the same
+     global batch: parameters bit-identical across the ranks, the loss
+     within 1e-5 relative and the parameters within rtol 1e-4 / atol 1e-6
+     of the single-process batch-16 step, and Separator(mesh) within 1e-5
+     of one device (the tolerances of tests/test_parallel.py).
 
-Each of the paths of phases 5, 8 to 15 and 13's optimise() is driven with
+Each of the paths of phases 5, 8 to 16 and 13's optimise() is driven with
 the kernels' launch counts set to 0 just before it and read just after (a
 graph replay adds the launches its capture recorded).
 
@@ -121,7 +134,8 @@ SEED = 1234
 LIMITS = {"nvidia-smi": 30, "build": 400, "kernels": 120, "timing": 180,
           "im2col": 240, "serve": 420, "forward": 300, "presets": 240,
           "sweep": 240, "graphs": 240, "spectro": 300, "stream": 240,
-          "m6": 120, "bench": 420, "train": 150, "eval": 420, "cli": 180}
+          "m6": 120, "bench": 420, "train": 150, "eval": 420, "cli": 180,
+          "dist": 300}
 
 # Peaks of one H100 SXM (NVIDIA data sheet) for the bounds: dense TF32 on
 # the tensor cores (the conv kernel computes in 3xTF32: three TF32 products
@@ -932,6 +946,11 @@ def main() -> int:
         cli_row = cli_check(get_config, kernels, eval_row, np, torch)
         path_launches["cli"] = cli_row["launches"]
 
+    with phase("dist"):
+        dist_row = dist_check(get_config, model, kernels, requests, smi, np,
+                              torch, dev)
+        path_launches["dist"] = dist_row["launches"]
+
     def entry(name, rows, source, replaces, n_launch, **extra):
         fwd = [r for r in forward_rows if r["kernel"] == name]
         return {
@@ -1000,6 +1019,7 @@ def main() -> int:
     print(f"train: {json.dumps(train_row)}", flush=True)
     print(f"eval: {json.dumps(eval_row)}", flush=True)
     print(f"cli: {json.dumps(cli_row)}", flush=True)
+    print(f"dist: {json.dumps(dist_row)}", flush=True)
     print(f"launches by path: {json.dumps(path_launches)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2474,6 +2494,325 @@ def cli_check(get_config, kernels, eval_row, np, torch):
         return row
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# -- phase dist ----------------------------------------------------------------
+
+DIST_STEPS = 3          # steps of the fused-against-eager mesh check
+DIST_TIMED_STEPS = 5    # eager steps timed with and without a mesh
+DIST_SONG_S = 8.0       # the one-rank ShardedBank's songs
+DIST_JOIN_S = 240       # each gloo rank's whole run
+DIST_LOSS_RTOL = 1e-5   # tests/test_parallel.py:52-56
+DIST_PARAM_RTOL, DIST_PARAM_ATOL = 1e-4, 1e-6
+DIST_SEP_ATOL = 1e-5    # tests/test_parallel.py:87
+
+
+def dist_inputs(get_config, model, torch, np, dev):
+    """full_44KHz at full width: the seeded params, one seeded global
+    training batch of 16 on the card, and the 30 s request's audio."""
+    cfg = get_config("full_44KHz")
+    from waveunet_tpu_torch.ops import shapes
+
+    in_len, out_len = shapes.get_padding(cfg, cfg.num_frames)
+    rng = np.random.default_rng(SEED + 1)
+    C = cfg.num_channels
+    batch = {s: (0.2 * rng.standard_normal((cfg.batch_size, out_len, C))
+                 ).astype(np.float32) for s in cfg.source_names}
+    batch["mix"] = (0.3 * rng.standard_normal((cfg.batch_size, in_len, C))
+                    ).astype(np.float32)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    def params():
+        return model.init_waveunet(torch.Generator().manual_seed(SEED), cfg,
+                                   dev)
+    return cfg, params, batch
+
+
+def dist_step_ms(cfg, params, batch, mesh, step_mod, torch, dev):
+    """Median ms of DIST_TIMED_STEPS eager steps (after one), host clock
+    around a synchronised step."""
+    import numpy as np
+
+    init_opt, step = step_mod.make_train_step(cfg, cfg.init_sup_sep_lr,
+                                              device=dev, mesh=mesh)
+    p = params()
+    o = init_opt(p)
+    ms = []
+    for i in range(DIST_TIMED_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(p, {}, o, batch)
+        torch.cuda.synchronize()
+        if i:
+            ms.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(ms))
+
+
+def dist_rank(rank, port, workdir):
+    """Part (b): one of two ranks sharing card 0 over gloo; writes its loss,
+    parameters, separation and launch counts to ``rank<r>.npz``."""
+    import traceback
+
+    try:
+        import numpy as np
+        import torch
+
+        sys.path.insert(0, HERE)
+        from waveunet_tpu_torch.compat.params import params_to_numpy
+        from waveunet_tpu_torch.config import get_config
+        from waveunet_tpu_torch.infer.engine import Separator
+        from waveunet_tpu_torch.models import waveunet as model
+        from waveunet_tpu_torch.ops import kernels
+        from waveunet_tpu_torch.ops.kernels import build
+        from waveunet_tpu_torch.parallel import distributed as D
+        from waveunet_tpu_torch.parallel.mesh import (make_mesh,
+                                                      put_batch_sharded)
+        from waveunet_tpu_torch.train import step as step_mod
+
+        build.load()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        D.initialize(f"localhost:{port}", 2, rank, backend="gloo",
+                     timeout_s=DIST_JOIN_S)
+        try:
+            mesh = make_mesh()  # this rank's current card
+            dev = mesh.device
+            cfg, params, batch = dist_inputs(get_config, model, torch, np,
+                                             dev)
+            init_opt, step = step_mod.make_train_step(
+                cfg, cfg.init_sup_sep_lr, mesh=mesh)
+            p = params()
+            _, _, _, loss = step(p, {}, init_opt(p),
+                                 put_batch_sharded(batch, mesh))
+            out = {"loss": np.asarray(float(loss)),
+                   "mesh": np.asarray([mesh.size, mesh.rank])}
+            out.update({f"params/{k}/{n}": v for k, leaves in
+                        params_to_numpy(p).items() for n, v in leaves.items()})
+            audio = np.load(os.path.join(workdir, "audio.npy"))
+            sep = Separator(cfg, params(), mesh=mesh)
+            kernels.reset_launches()
+            res = sep.separate(audio, cfg.expected_sr)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            out["launches"] = np.asarray([counts["conv1d_lrelu"],
+                                          counts["learned_interp"],
+                                          counts["conv1d_lrelu_im2col"]])
+            out.update({f"sep/{k}": v for k, v in res.items()})
+            np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+        finally:
+            D.shutdown()
+    except BaseException:
+        traceback.print_exc()
+        sys.exit(1)
+
+
+def dist_check(get_config, model, kernels, requests, smi, np, torch, dev):
+    """Phase dist: (a) a world of one through NCCL on the card, bit for bit
+    against the mesh-free paths; (b) two spawned ranks sharing the card
+    over gloo, against one process (the module docstring, phase 16)."""
+    import multiprocessing as mp
+    import shutil
+    import socket
+    import tempfile
+
+    from waveunet_tpu_torch.compat.params import params_to_numpy
+    from waveunet_tpu_torch.data.device_cache import ShardedBank
+    from waveunet_tpu_torch.infer.engine import Separator
+    from waveunet_tpu_torch.ops import shapes
+    from waveunet_tpu_torch.parallel import distributed as D
+    from waveunet_tpu_torch.parallel.mesh import make_mesh
+    from waveunet_tpu_torch.train import loop
+    from waveunet_tpu_torch.train import step as step_mod
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    def same_tree(a, b):
+        return [f"{k}/{n}" for k in a for n in a[k]
+                if not torch.equal(a[k][n], b[k][n])]
+
+    cfg, params, batch = dist_inputs(get_config, model, torch, np, dev)
+    in_len, out_len = shapes.get_padding(cfg, cfg.num_frames)
+    audio = requests[2]
+    sr = cfg.expected_sr
+    row = {"card": smi, "config": {
+        "preset": "full_44KHz", "layers": cfg.num_layers,
+        "filters": cfg.num_initial_filters, "window": cfg.num_frames,
+        "batch": cfg.batch_size, "infer_batch": cfg.infer_batch,
+        "request_s": audio.shape[0] / sr}}
+    print(f"dist: full_44KHz at full width ({cfg.num_layers} layers, "
+          f"{cfg.num_initial_filters} filters, training window "
+          f"{cfg.num_frames}, batch {cfg.batch_size}, infer_batch "
+          f"{cfg.infer_batch}) on {smi}", flush=True)
+
+    # the single-device references: one request, one step from the seed
+    one = Separator(cfg, params(), device=dev).separate(audio, sr)
+    init_opt, step = step_mod.make_train_step(cfg, cfg.init_sup_sep_lr,
+                                              device=dev)
+    p_ref = params()
+    _, _, _, loss_ref = step(p_ref, {}, init_opt(p_ref), batch)
+    loss_ref = float(loss_ref)
+
+    # (a) a world of one over NCCL, the group destroyed afterwards
+    D.initialize(f"localhost:{free_port()}", 1, 0, timeout_s=DIST_JOIN_S)
+    a = {}
+    try:
+        mesh = make_mesh()
+        a["mesh"] = repr(mesh)
+        kernels.reset_launches()
+        got = Separator(cfg, params(), mesh=mesh).separate(audio, sr)
+        torch.cuda.synchronize()
+        a["separator"] = {
+            "launches": kernels.launch_counts(),
+            "bit_for_bit": all(np.array_equal(got[k], one[k]) for k in one)}
+        init_opt, mstep = step_mod.make_train_step(cfg, cfg.init_sup_sep_lr,
+                                                   mesh=mesh)
+        p = params()
+        kernels.reset_launches()
+        _, _, _, loss = mstep(p, {}, init_opt(p), batch)
+        a["train_step"] = {"loss": float(loss), "loss_mesh_free": loss_ref,
+                           "launches": kernels.launch_counts(),
+                           "params_differ": same_tree(p, p_ref)}
+        a["train_step"]["bit_for_bit"] = (
+            float(loss) == loss_ref and not a["train_step"]["params_differ"])
+
+        # a one-rank ShardedBank, trained eagerly and as the fused epoch
+        rng = np.random.default_rng(SEED + 2)
+        n = int(DIST_SONG_S * sr)
+        tracks = []
+        for _ in range(2):
+            t = {s: (0.2 * rng.standard_normal((n, cfg.num_channels))
+                     ).astype(np.float32) for s in cfg.source_names}
+            t["mix"] = sum(t.values())
+            tracks.append(t)
+        bank = ShardedBank.from_tracks(cfg, in_len, out_len, mesh, tracks,
+                                       batch_size=cfg.batch_size)
+        fcfg = cfg.replace(epoch_it=DIST_STEPS)
+        eager = loop.init_state(fcfg, device=dev)
+        eager, el = loop.train_one_epoch(fcfg, eager, mstep,
+                                         bank.batches(SEED, start=0))
+        fused = loop.init_state(fcfg, device=dev)
+        kernels.reset_launches()
+        epoch_fn = step_mod.make_scanned_epoch(
+            fcfg, cfg.init_sup_sep_lr, DIST_STEPS, bank.sample,
+            device=dev, mesh=mesh, presharded_batch=True)
+        fused, fl = loop.train_one_epoch_scanned(fcfg, fused, epoch_fn, SEED)
+        torch.cuda.synchronize()
+        g = epoch_fn.graph_state.get("graph")
+        differ = (same_tree(fused.params, eager.params)
+                  + same_tree(fused.opt_state["mu"], eager.opt_state["mu"])
+                  + same_tree(fused.opt_state["nu"], eager.opt_state["nu"]))
+        a["fused_epoch"] = {
+            "steps": DIST_STEPS, "bank_songs": bank.local_songs,
+            "bank_bytes": bank.nbytes(), "graph_captured": g is not None,
+            "graph_replays": g.replays if g is not None else 0,
+            "eager_mean_loss": el, "fused_mean_loss": fl,
+            "launches": kernels.launch_counts(), "differ": differ[:5],
+            "bit_for_bit": not differ and el == fl}
+
+        x = 1.0 + 2.0 ** -30  # float32 rounds it to 1.0
+        got_mean = D.pod_weighted_mean(x, 1)
+        a["pod_weighted_mean"] = {"value": repr(got_mean),
+                                  "f64_exact": got_mean == x}
+        a["step_ms"] = {"mesh": dist_step_ms(cfg, params, batch, mesh,
+                                             step_mod, torch, dev),
+                        "mesh_free": dist_step_ms(cfg, params, batch, None,
+                                                  step_mod, torch, dev),
+                        "card": smi}
+    finally:
+        D.shutdown()
+    row["nccl_world_1"] = a
+    print(f"dist (a) NCCL world 1: {json.dumps(a)}", flush=True)
+    if not a["separator"]["bit_for_bit"]:
+        fail("dist: Separator(mesh) differs from the single-device engine")
+    if not a["train_step"]["bit_for_bit"]:
+        fail(f"dist: the mesh step differs from the mesh-free step: "
+             f"{a['train_step']}")
+    if not (a["fused_epoch"]["graph_captured"]
+            and a["fused_epoch"]["bit_for_bit"]):
+        fail(f"dist: the fused epoch with the captured all-reduce differs "
+             f"from the eager mesh loop: {a['fused_epoch']}")
+    if not a["pod_weighted_mean"]["f64_exact"]:
+        fail("dist: pod_weighted_mean is not exact in float64")
+    sep_l = a["separator"]["launches"]
+    if not (sep_l["conv1d_lrelu"] > 0 and sep_l["learned_interp"] > 0):
+        fail("dist: the mesh Separator launched no conv or interp kernel")
+
+    # (b) two spawned ranks on this card over gloo
+    work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        np.save(os.path.join(work, "audio.npy"), audio)
+        port = free_port()
+        ctx = mp.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=dist_rank, args=(r, port, work))
+                 for r in range(2)]
+        for pr in procs:
+            pr.start()
+        for pr in procs:
+            pr.join(DIST_JOIN_S)
+        hung = [pr.is_alive() for pr in procs]
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+        codes = [pr.exitcode for pr in procs]
+        if any(hung) or any(codes):
+            fail(f"dist (b): gloo ranks hung {hung}, exit codes {codes}")
+        wall = time.perf_counter() - t0
+        ranks = [np.load(os.path.join(work, f"rank{r}.npz"))
+                 for r in range(2)]
+        ref = {f"params/{k}/{n}": v for k, leaves in
+               params_to_numpy(p_ref).items() for n, v in leaves.items()}
+        keys = sorted(ref)
+        identical = all(np.array_equal(ranks[0][k], ranks[1][k])
+                        for k in keys)
+        loss_rel = abs(float(ranks[0]["loss"]) - loss_ref) / abs(loss_ref)
+        worst = 0.0
+        params_ok = True
+        for k in keys:
+            got_p, want = ranks[0][k], ref[k]
+            err = np.abs(got_p - want)
+            worst = max(worst, float(err.max()))
+            params_ok &= bool(np.all(err <= DIST_PARAM_ATOL
+                                     + DIST_PARAM_RTOL * np.abs(want)))
+        sep_err = max(float(np.abs(r[f"sep/{k}"] - one[k]).max())
+                      for r in ranks for k in one)
+        sep_same = all(np.array_equal(ranks[0][f"sep/{k}"],
+                                      ranks[1][f"sep/{k}"]) for k in one)
+        b = {"wall_s": wall, "ranks": [r["mesh"].tolist() for r in ranks],
+             "loss": [float(r["loss"]) for r in ranks],
+             "loss_single_process": loss_ref, "loss_rel_err": loss_rel,
+             "params_max_abs_err": worst, "params_within_tol": params_ok,
+             "ranks_bit_identical": identical,
+             "separator_max_abs_err": sep_err,
+             "separator_ranks_equal": sep_same,
+             "launches": [dict(zip(("conv1d_lrelu", "learned_interp",
+                                    "conv1d_lrelu_im2col"),
+                                   r["launches"].tolist())) for r in ranks]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    row["gloo_two_ranks"] = b
+    print(f"dist (b) two gloo ranks on one card: {json.dumps(b)}",
+          flush=True)
+    if not identical:
+        fail("dist (b): the ranks' parameters differ after the step")
+    if not loss_rel <= DIST_LOSS_RTOL:
+        fail(f"dist (b): loss {loss_rel:.3e} from the single process")
+    if not params_ok:
+        fail(f"dist (b): parameters {worst:.3e} from the single process")
+    if not (sep_err <= DIST_SEP_ATOL and sep_same):
+        fail(f"dist (b): Separator(mesh) {sep_err:.3e} from one device")
+    if not all(x["conv1d_lrelu"] > 0 and x["learned_interp"] > 0
+               for x in b["launches"]):
+        fail("dist (b): a rank launched no conv or interp kernel")
+    row["launches"] = {k: a["separator"]["launches"][k]
+                       + a["train_step"]["launches"][k]
+                       + a["fused_epoch"]["launches"][k]
+                       for k in a["separator"]["launches"]}
+    return row
 
 
 @contextlib.contextmanager

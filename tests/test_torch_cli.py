@@ -83,13 +83,19 @@ def test_predict_requires_input_path():
     assert e.value.code == 2
 
 
-@pytest.mark.parametrize("opt", ["coordinator=host0:1234", "num_processes=2",
-                                 "process_id=0"])
-def test_pod_options_name_the_multi_gpu_slice(opt, capsys):
+@pytest.mark.parametrize("opt,message", [
+    ("coordinator=host0:1234", "coordinator= needs num_processes="),
+    ("num_processes=2", "num_processes=2 needs coordinator="),
+    # process_id alone runs one process, as in the JAX package: on to the
+    # evaluation's own error
+    ("process_id=0", "no checkpoint given")])
+def test_pod_options_name_the_multi_gpu_slice(opt, message, capsys):
     with pytest.raises(SystemExit) as e:
         run("evaluate", "baseline", opt)
     assert e.value.code == 2
-    assert "multi-GPU" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert message in err
+    assert ("pod options" in err) == (opt != "process_id=0")
 
 
 def test_train_wrote_checkpoint_and_metrics(cli_env):

@@ -221,7 +221,7 @@ def test_self_check_separator(env):
 
 
 def test_refusals(env, tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         evaluate_musdb(env["cfg"], env["params"], mesh=object(),
                        device="cpu")
     with pytest.raises(ImportError, match="musdb package"):

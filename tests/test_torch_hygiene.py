@@ -69,7 +69,10 @@ def test_package_imports_without_jax():
             "waveunet_tpu_torch.eval.aggregate, "
             "waveunet_tpu_torch.eval.bsseval_tpu, "
             "waveunet_tpu_torch.eval.bsseval_tpu64, "
-            "waveunet_tpu_torch.eval.harness, waveunet_tpu_torch.eval.plot\n"
+            "waveunet_tpu_torch.eval.harness, waveunet_tpu_torch.eval.plot, "
+            "waveunet_tpu_torch.parallel.mesh, "
+            "waveunet_tpu_torch.parallel.distributed, "
+            "waveunet_tpu_torch.parallel.dryrun\n"
             "assert w.optimise is waveunet_tpu_torch.train.loop.optimise\n"
             "assert w.Separator is waveunet_tpu_torch.infer.engine.Separator\n"
             "assert not any(m.startswith(('jax', 'triton', 'matplotlib')) "
@@ -113,7 +116,8 @@ def test_build_without_nvcc_raises(monkeypatch):
                                    "make_eval_step", "evaluate_musdb",
                                    "bss_eval_framewise_tpu",
                                    "bss_eval_framewise_tpu64",
-                                   "draw_spectrogram"])
+                                   "draw_spectrogram", "make_mesh",
+                                   "initialize"])
 def test_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
     """No device argument means the card; without one they raise and do not
     fall back to the CPU."""
@@ -125,6 +129,8 @@ def test_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
     from waveunet_tpu_torch.eval.harness import evaluate_musdb
     from waveunet_tpu_torch.eval.plot import draw_spectrogram
     from waveunet_tpu_torch.ops.stft import griffin_lim
+    from waveunet_tpu_torch.parallel.distributed import initialize
+    from waveunet_tpu_torch.parallel.mesh import make_mesh
     from waveunet_tpu_torch.train.step import (make_eval_step,
                                                make_scanned_epoch,
                                                make_train_step)
@@ -166,6 +172,8 @@ def test_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
         "bss_eval_framewise_tpu64": lambda: bss_eval_framewise_tpu64(
             refs, refs, 1000),
         "draw_spectrogram": lambda: draw_spectrogram(wav),
+        "make_mesh": lambda: make_mesh(),
+        "initialize": lambda: initialize("127.0.0.1:1", 2, 0),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -213,9 +213,14 @@ def test_u7_fused_epoch_equals_eager_loop(tmp_path):
                for k in stats0)
 
 
-def test_optimise_refuses_multi_gpu(tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+def test_optimise_refuses_multi_gpu(tmp_path, monkeypatch):
+    """A mesh that is not the port's raises TypeError; several processes
+    without a mesh raise the JAX package's ValueError."""
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         optimise(tiny_cfg(tmp_path), mesh=object(), device="cpu")
+    monkeypatch.setattr(loop_mod, "world", lambda: (0, 2))
+    with pytest.raises(ValueError, match="pod training requires a mesh"):
+        optimise(tiny_cfg(tmp_path), device="cpu")
 
 
 # -- checkpoints -------------------------------------------------------------

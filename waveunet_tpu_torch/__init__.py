@@ -16,7 +16,11 @@ device-resident data banks ``DeviceBank`` and ``EvalBank``; the training
 step runs plain differentiable ops, validation runs through the kernels.
 Evaluation: ``evaluate_musdb`` (``eval/``: the host fp64 BSS-Eval scorer,
 the fp32 and fp64 device scorers). The command line: ``python -m
-waveunet_tpu_torch <command>`` (``cli.py``).
+waveunet_tpu_torch <command>`` (``cli.py``). Several cards: one process a
+card joined by ``torch.distributed`` (``parallel/``), with ``make_mesh``
+over the ranks for data-parallel training (``optimise``, the sharded bank
+``ShardedBank``), window-parallel ``Separator`` and ``evaluate_musdb``,
+and ``dryrun_multichip``, the multi-process dry run on the CPU.
 
 Importing the package loads only the configuration; the models, the engine
 and the kernels load on first use.
@@ -43,6 +47,10 @@ _LAZY = {
     "DeviceBank": "waveunet_tpu_torch.data.device_cache",
     "EvalBank": "waveunet_tpu_torch.data.device_cache",
     "evaluate_musdb": "waveunet_tpu_torch.eval.harness",
+    "ShardedBank": "waveunet_tpu_torch.data.device_cache",
+    "Mesh": "waveunet_tpu_torch.parallel.mesh",
+    "make_mesh": "waveunet_tpu_torch.parallel.mesh",
+    "dryrun_multichip": "waveunet_tpu_torch.parallel.dryrun",
 }
 
 __all__ = ["Config", "get_config", "preset_names", *_LAZY, "__version__"]

@@ -23,9 +23,22 @@ same preset + ``key=value`` grammar (the reference's sacred CLI,
 Every command runs on the CUDA card; ``platform=cpu`` (accepted anywhere on
 the line) runs it on the host instead, and without a card a command that
 needs one exits 2 saying so. ``random_init=1`` runs with seeded random
-weights where no checkpoint is given. The multi-host options of the JAX
-package (``coordinator``, ``num_processes``, ``process_id``) belong to the
-multi-GPU slice, which is not ported: they exit 2.
+weights where no checkpoint is given.
+
+Several cards run one process a card. ``train``, ``evaluate`` and
+``predict`` take the pod options of the JAX package, one command a rank:
+
+  python -m waveunet_tpu_torch train full_44KHz coordinator=host0:1234 \
+      num_processes=4 process_id=<i> experiment_id=run1
+
+or read ``torchrun``'s environment (``torchrun --nproc-per-node=4 -m
+waveunet_tpu_torch train full_44KHz ...``). Each rank takes the card
+``LOCAL_RANK``, else ``process_id`` modulo the host's cards; NCCL on the
+cards, gloo with ``platform=cpu``. ``train`` trains data-parallel
+(process 0 prepares the cache while the others wait, up to
+``WAVEUNET_PREPARE_TIMEOUT_S`` seconds), ``evaluate`` scores a disjoint
+track shard on each card and process 0 prints the table, and ``predict``
+shards the song's windows over the cards.
 """
 
 from __future__ import annotations
@@ -57,7 +70,11 @@ class _Device:
                 and not torch.cuda.is_available():
             _exit("no CUDA device is available; pass platform=cpu to run "
                   "on the host")
-        return resolve_device("cpu" if self.platform == "cpu" else "cuda")
+        if self.platform == "cpu":
+            return resolve_device("cpu")
+        # a pod rank's own card (initialize set it current)
+        return resolve_device(torch.device("cuda",
+                                           torch.cuda.current_device()))
 
 
 def _exit(msg: str, code: int = 2):
@@ -92,12 +109,38 @@ def _split_args(args: List[str]) -> Tuple[List[str], Dict[str, str]]:
                 opts[k] = v
                 continue
         cfg_frags.append(a)
-    given = [k for k in _POD_OPTIONS if k in opts]
-    if given:
-        _exit(f"{', '.join(given)}: multi-host runs belong to the multi-GPU "
-              f"slice of the port, which is not ported yet; run one process "
-              f"on one card")
     return cfg_frags, opts
+
+
+def _maybe_init_pod(opts, device) -> int:
+    """Bring up the process group before any device use, from the pod
+    options or from torchrun's environment; returns the world size (1: a
+    single process, nothing to do). ``process_id`` alone runs one process,
+    as in the JAX package."""
+    import torch.distributed as dist
+
+    from waveunet_tpu_torch.parallel import distributed as D
+
+    if ("coordinator" not in opts and "num_processes" not in opts
+            and int(os.environ.get("WORLD_SIZE", "1")) <= 1):
+        return 1
+    if device.platform != "cpu":
+        import torch
+        if not torch.cuda.is_available():
+            device.get()  # exits 2, saying why
+    try:
+        rank = D.initialize(
+            coordinator_address=opts.get("coordinator"),
+            num_processes=(int(opts["num_processes"])
+                           if "num_processes" in opts else None),
+            process_id=(int(opts["process_id"])
+                        if "process_id" in opts else None),
+            device="cpu" if device.platform == "cpu" else None)
+    except ValueError as e:
+        _exit(f"pod options: {e}")
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    print(f"pod process {rank}/{n} up on {device.get()}")
+    return n
 
 
 def _config(cfg_frags: List[str]):
@@ -117,21 +160,46 @@ def cmd_presets(_args, _device):
 def cmd_train(args, device):
     from waveunet_tpu_torch.data import cache
     from waveunet_tpu_torch.ops import shapes
+    from waveunet_tpu_torch.parallel.mesh import world
     from waveunet_tpu_torch.train.loop import optimise
 
     cfg_frags, opts = _split_args(args)
     cfg = _config(cfg_frags)
+    n_proc = _maybe_init_pod(opts, device)
     dev = device.get()
     if not cache.is_prepared(cfg):
-        print("Preparing dataset cache...")
-        cache.prepare_dataset(cfg, shapes.context_pad(cfg, cfg.num_frames))
+        if world()[0] != 0:
+            # one preparer; the others wait for its marker, with a deadline
+            # so a crash of process 0 fails the pod instead of hanging it
+            import time
+            limit = float(os.environ.get("WAVEUNET_PREPARE_TIMEOUT_S", 7200))
+            print(f"waiting for process 0 to prepare the dataset cache "
+                  f"(timeout {limit:.0f}s)...")
+            t0 = time.monotonic()
+            while not cache.is_prepared(cfg):
+                if time.monotonic() - t0 > limit:
+                    _exit(f"dataset cache not prepared within {limit:.0f}s "
+                          f"- did process 0 die? (WAVEUNET_PREPARE_TIMEOUT_S "
+                          f"overrides)", 3)
+                time.sleep(2.0)
+        else:
+            print("Preparing dataset cache...")
+            cache.prepare_dataset(cfg,
+                                  shapes.context_pad(cfg, cfg.num_frames))
+    mesh = None
+    if n_proc > 1:
+        from waveunet_tpu_torch.parallel.mesh import make_mesh
+        if cfg.batch_size % n_proc:
+            _exit(f"batch_size {cfg.batch_size} must divide across "
+                  f"{n_proc} pod devices")
+        mesh = make_mesh(devices=[dev])
     max_ep = int(opts["max_epochs"]) if "max_epochs" in opts else None
     resume = opts.get("checkpoint")
     if resume == "auto":  # crash-resume from the newest checkpoint, if any
         resume = _resolve_auto_checkpoint(cfg, opts.get("experiment_id", ""))
         print(f"auto-resume: {resume or 'no checkpoint found, fresh start'}")
     path, test_loss = optimise(cfg, experiment_id=opts.get("experiment_id"),
-                               resume_path=resume,
+                               mesh=mesh, resume_path=resume,
                                max_epochs_per_round=max_ep, device=dev)
     print(f"Best model: {path}; test loss {test_loss}")
     # the reference's run ends with MUSDB estimates of the best model
@@ -141,9 +209,21 @@ def cmd_train(args, device):
 
 
 def _dataset_eval(cfg, opts, checkpoint, subset, output_path, dev):
-    """The dataset evaluation of ``evaluate`` and ``train final_eval=1``."""
-    from waveunet_tpu_torch.eval.harness import evaluate_musdb
+    """The dataset evaluation of ``evaluate`` and ``train final_eval=1``.
 
+    In a pod each rank scores a disjoint stride of the tracks on its own
+    card (no collective inside: a per-track loop with file writes must not
+    steer the ranks' collectives), all meet at a barrier, and rank 0
+    aggregates the shared results folder once."""
+    from waveunet_tpu_torch.eval.harness import (aggregate_and_print,
+                                                 evaluate_musdb)
+    from waveunet_tpu_torch.parallel.mesh import barrier, host_mesh, world
+
+    rank, n_proc = world()
+    pod = n_proc > 1
+    if pod:
+        print(f"pod {subset} eval: scoring track shard {rank}/{n_proc} on "
+              f"{dev}")
     params, model_state = _load_params(cfg, checkpoint,
                                        opts.get("experiment_id", ""),
                                        allow_random=_random_ok(opts),
@@ -154,8 +234,13 @@ def _dataset_eval(cfg, opts, checkpoint, subset, output_path, dev):
                                if "max_tracks" in opts else None),
                    win_s=float(opts.get("win_s", 1.0)),
                    tpu_bss=_parse_tpu_bss(opts),
+                   shard_index=rank, shard_count=n_proc, aggregate=not pod,
                    self_check=opts.get("self_check", "1").lower()
                    not in ("0", "false"), device=dev)
+    if pod:
+        barrier(host_mesh())
+        if rank == 0:
+            aggregate_and_print(os.path.join(output_path, subset))
 
 
 def _random_ok(opts):
@@ -285,7 +370,12 @@ def cmd_predict(args, device):
     cfg = _config(cfg_frags)
     if "input_path" not in opts:
         _exit("predict requires input_path=<audio file>")
+    n_proc = _maybe_init_pod(opts, device)
     dev = device.get()
+    mesh = None
+    if n_proc > 1:
+        from waveunet_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(devices=[dev])
     checkpoint = opts.get("checkpoint")
     if checkpoint is None and not _random_ok(opts):
         preset = next((a for a in cfg_frags if "=" not in a), "baseline")
@@ -300,7 +390,7 @@ def cmd_predict(args, device):
                                        device=dev)
     written = separate_file(cfg, params, opts["input_path"],
                             output_path=opts.get("output_path"), device=dev,
-                            model_state=model_state)
+                            model_state=model_state, mesh=mesh)
     for name, p in written.items():
         print(f"{name}: {p}")
 
@@ -308,6 +398,7 @@ def cmd_predict(args, device):
 def cmd_evaluate(args, device):
     cfg_frags, opts = _split_args(args)
     cfg = _config(cfg_frags)
+    _maybe_init_pod(opts, device)
     _dataset_eval(cfg, opts, opts.get("checkpoint"),
                   opts.get("subset", "test"),
                   opts.get("output_path", cfg.estimates_path), device.get())
@@ -512,13 +603,19 @@ def main(argv=None):
     if not argv or argv[0] not in _COMMANDS:
         print(__doc__)
         sys.exit(0 if argv and argv[0] in ("-h", "--help") else 2)
+    import torch.distributed as dist
+
     from waveunet_tpu_torch.config import ConfigError
     rest, device = _apply_platform(argv[1:])
+    grouped = dist.is_initialized()
     try:
         _COMMANDS[argv[0]](rest, device)
     except ConfigError as e:
         # unknown preset or bad override: the message, not a traceback
         _exit(str(e))
+    finally:
+        if not grouped and dist.is_initialized():  # a pod command's group
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -25,11 +25,19 @@ output length, the remainder of the last batch dropped (the host
 pipeline's eval batches), with the stored mixture as a row, and sweeps them
 through the port's inference forward: the hand-written kernels on the card,
 replaying one CUDA graph a batch size there.
+
+Several processes: ``DeviceBank`` and ``EvalBank`` take ``(host_id,
+num_hosts)`` and hold the round-robin song subset ``paths[host_id::
+num_hosts]``; the ranks combine ``EvalBank.loss_sums`` with
+``parallel.distributed.pod_weighted_mean``. ``ShardedBank`` is the
+training partition sharded over a mesh: rank r holds ``paths[r::world]``
+and samples its rows of the global batch with the rank folded into the
+key, as the JAX package's ``shard_map`` sampler does.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -73,6 +81,11 @@ def _mix_int(x: int) -> int:
     x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
     return _i64(x ^ (x >> 31))
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new stream key from ``key`` and ``data`` (a rank)."""
+    return _mix_int(_mix_int(key) + data)
 
 
 def draws(key: int, step, n_rows: int, n_purposes: int,
@@ -179,13 +192,14 @@ def build_sampler(cfg: Config, input_len: int, output_len: int, batch: int,
     return sample
 
 
-def _load_rows(paths: List[str], keys: List[str], input_len: int):
+def _load_rows(paths: List, keys: List[str], input_len: int,
+               load_song: Callable = cache.load_song):
     """(rows of each usable song, lengths, corrupt count): songs shorter
     than the input window are left out, corrupt shards skipped."""
     rows, lengths, n_corrupt = [], [], 0
     for p in paths:
         try:
-            tracks = cache.load_song(p)
+            tracks = load_song(p)
         except ValueError as e:  # a rotted shard: skip it as the pipeline does
             print(f"WARNING: {e}; skipping")
             n_corrupt += 1
@@ -200,12 +214,14 @@ def _load_rows(paths: List[str], keys: List[str], input_len: int):
 
 class DeviceBank:
     """The training partition as one int16 bank on the device, with its
-    song table, and the sampler over it."""
+    song table, and the sampler over it; with ``(host_id, num_hosts)``,
+    only this host's round-robin song subset."""
 
     def __init__(self, cfg: Config, partition: str, input_len: int,
                  output_len: int, max_songs: Optional[int] = None,
                  batch_size: Optional[int] = None,
-                 max_bytes: Optional[int] = None, device: DeviceLike = None):
+                 max_bytes: Optional[int] = None, device: DeviceLike = None,
+                 host_id: int = 0, num_hosts: int = 1):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.input_len = input_len
@@ -216,6 +232,10 @@ class DeviceBank:
             paths = paths[:max_songs]
         if not paths:
             raise FileNotFoundError(f"no cached songs for {partition!r}")
+        paths = paths[host_id::num_hosts]
+        if not paths:
+            raise ValueError(
+                f"host {host_id}/{num_hosts} got an empty song slice")
         row_keys = _bank_row_keys(cfg)
         self._stored_mix = row_keys[-1] == "mix"
         rows, lengths, n_corrupt = _load_rows(paths, row_keys, input_len)
@@ -271,17 +291,114 @@ class DeviceBank:
             i += 1
 
 
+class ShardedBank(DeviceBank):
+    """The training partition sharded over a mesh's ranks: rank r holds the
+    round-robin song subset ``paths[r::world]`` on its own card and samples
+    its ``batch // world`` rows of each global batch, with the rank folded
+    into the stream key, so the global batch mixes the whole dataset every
+    step. ``batches`` and a fused epoch over ``sample`` see the same stream.
+
+    Construction is collective (call it on every rank): one ``all_reduce``
+    agrees the largest shard (each rank's bank is zero-padded to it, as the
+    JAX package's global array is; no position reaches the padding) and
+    the smallest song count, so a rank without a usable song makes every
+    rank raise the same ``ValueError``."""
+
+    def __init__(self, cfg: Config, partition: str, input_len: int,
+                 output_len: int, mesh, batch_size: Optional[int] = None,
+                 max_bytes: Optional[int] = None):
+        paths = cache.list_songs(cfg, partition)
+        if not paths:
+            raise FileNotFoundError(f"no cached songs for {partition!r}")
+        self._build(cfg, input_len, output_len, mesh, paths, cache.load_song,
+                    partition, batch_size, max_bytes)
+
+    @classmethod
+    def from_tracks(cls, cfg: Config, input_len: int, output_len: int, mesh,
+                    tracks_list, batch_size: Optional[int] = None):
+        """From in-memory songs (source name -> [n, C] float array, one dict
+        a song) instead of the disk cache, through the same shard layout."""
+        self = cls.__new__(cls)
+        self._build(cfg, input_len, output_len, mesh,
+                    list(range(len(tracks_list))), lambda i: tracks_list[i],
+                    "<in-memory>", batch_size, None)
+        return self
+
+    def _build(self, cfg, input_len, output_len, mesh, paths, load_song,
+               partition, batch_size, max_bytes):
+        from waveunet_tpu_torch.parallel.mesh import all_reduce_, check_mesh
+
+        self.mesh = check_mesh(mesh)
+        self.device = mesh.device
+        self.cfg = cfg
+        self.input_len = input_len
+        self.output_len = output_len
+        self.pad = (input_len - output_len) // 2
+        row_keys = _bank_row_keys(cfg)
+        self._stored_mix = row_keys[-1] == "mix"
+        rows, lengths, _ = _load_rows(paths[mesh.rank::mesh.size], row_keys,
+                                      input_len, load_song)
+        # (max length, -min songs) in one MAX all-reduce; the song tables
+        # need no padding, since each rank samples only its own
+        agreed = torch.tensor([sum(lengths), -len(rows)], dtype=torch.int64,
+                              device=mesh.collective_device)
+        max_len, min_songs = all_reduce_(agreed, mesh, "max").tolist()
+        min_songs = -min_songs
+        if min_songs == 0:
+            raise ValueError(
+                f"sharded bank needs >= 1 usable song per device "
+                f"({mesh.size} devices, {len(paths)} songs in {partition!r})")
+        _check_int32_addressable(max_len, "sharded bank device shard")
+        shard_bytes = len(row_keys) * max_len * cfg.num_channels * 2
+        if max_bytes is not None and shard_bytes > max_bytes:
+            raise ValueError(
+                f"per-device bank shard {shard_bytes / 1e9:.1f} GB exceeds "
+                f"the {max_bytes / 1e9:.1f} GB device budget")
+        bank = _quantise(np.concatenate(rows, axis=1))
+        bank = np.pad(bank, [(0, 0), (0, max_len - bank.shape[1]), (0, 0)])
+        offsets = np.concatenate([[0], np.cumsum(lengths)])
+        self.n_songs = self.local_songs = len(rows)
+        self.n_local_devices = 1
+        self._bank = torch.from_numpy(bank).to(self.device)
+        self._starts = torch.as_tensor(offsets[:-1], dtype=torch.int64,
+                                       device=self.device)
+        self._valids = torch.as_tensor(np.asarray(lengths) - input_len,
+                                       dtype=torch.int64, device=self.device)
+        self.set_batch(batch_size or cfg.batch_size)
+
+    def set_batch(self, batch: int) -> None:
+        """Re-point the sampler at a new GLOBAL batch size (the fine-tune
+        round doubles it); the shard stays where it is."""
+        if batch % self.mesh.size:
+            raise ValueError(f"global batch {batch} not divisible by "
+                             f"{self.mesh.size} mesh devices")
+        self.batch = batch
+        self._sampler = build_sampler(self.cfg, self.input_len,
+                                      self.output_len,
+                                      batch // self.mesh.size,
+                                      stored_mix=self._stored_mix)
+
+    def sample(self, key: int, step) -> Dict[str, torch.Tensor]:
+        """This rank's rows of the global batch of absolute step ``step``
+        of the stream ``key``."""
+        return self._sampler(self._bank, self._starts, self._valids,
+                             fold_in(key, self.mesh.rank), step)
+
+
 class EvalBank:
     """A partition's deterministic evaluation windows on the device.
 
     ``dtype`` "int16" quantises like the training bank; "float32" keeps the
     cache's values. ``set_batch`` re-chunks the window list (drop remainder)
-    without uploading again."""
+    without uploading again. With ``(host_id, num_hosts)`` it holds this
+    host's round-robin song subset, which may be empty when there are
+    several hosts (a shard of weight 0 in ``loss_sums``)."""
 
     def __init__(self, cfg: Config, partition: str, input_len: int,
                  output_len: int, batch_size: Optional[int] = None,
                  max_bytes: Optional[int] = None, dtype: str = "int16",
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, host_id: int = 0,
+                 num_hosts: int = 1):
         if dtype not in ("int16", "float32"):
             raise ValueError(f"dtype {dtype!r}: use 'int16' or 'float32'")
         self.device = resolve_device(device)
@@ -294,7 +411,15 @@ class EvalBank:
         if not paths:
             raise FileNotFoundError(f"no cached songs for {partition!r}")
         keys = list(cfg.source_names) + ["mix"]
-        rows, lengths, _ = _load_rows(paths, keys, input_len)
+        self._graphs: Dict = {}
+        rows, lengths, _ = _load_rows(paths[host_id::num_hosts], keys,
+                                      input_len)
+        if not rows and num_hosts > 1:
+            self._bank = None
+            self._positions = np.zeros((0,), np.int64)
+            self.n_windows = 0
+            self.set_batch(batch_size or cfg.batch_size)
+            return
         if not rows:
             raise ValueError("no song long enough for the input window")
         offsets = np.concatenate([[0], np.cumsum(lengths)])
@@ -310,7 +435,6 @@ class EvalBank:
             sampler.sequential_snippet_positions(n, input_len, output_len) + o
             for n, o in zip(lengths, offsets)]).astype(np.int64)
         self.n_windows = int(self._positions.shape[0])
-        self._graphs: Dict = {}
         self.set_batch(batch_size or cfg.batch_size)
 
     def set_batch(self, batch: int) -> None:
@@ -322,6 +446,8 @@ class EvalBank:
             self._positions[:self.n_batches * batch], device=self.device)
 
     def nbytes(self) -> int:
+        if self._bank is None:
+            return 0
         return self._bank.numel() * self._bank.element_size()
 
     @property
@@ -399,3 +525,14 @@ class EvalBank:
             n += 1
             total += (float(loss) - total) / n
         return total
+
+    def loss_sums(self, params, model_state,
+                  graphed: Optional[bool] = None):
+        """(sum of the batch losses in float64, batch count): this shard's
+        share of a validation mean over several hosts, combined with
+        ``parallel.distributed.pod_weighted_mean``; (0.0, 0) for a shard
+        without a full batch."""
+        if self.n_batches == 0:
+            return 0.0, 0
+        losses = self.batch_losses(params, model_state, graphed)
+        return float(np.sum(losses, dtype=np.float64)), int(losses.shape[0])

@@ -3,7 +3,8 @@
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``
 (as the CPU tests do). Without a card they raise instead of quietly running on
 the CPU: a separation that was meant for the card and ran on the host would
-look like a working, very slow service.
+look like a working, very slow service. Several cards are several
+processes, one a card (``parallel/``).
 """
 
 from __future__ import annotations
@@ -27,13 +28,3 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
 
-
-def refuse_multi_gpu(mesh) -> None:
-    """Raise for a ``mesh`` or an initialised process group of more than one
-    process: multi-GPU is not ported, and the port runs on one device."""
-    import torch.distributed as dist
-
-    if mesh is not None or (dist.is_available() and dist.is_initialized()
-                            and dist.get_world_size() > 1):
-        raise NotImplementedError(
-            "multi-GPU is not ported: waveunet_tpu_torch runs on one device")

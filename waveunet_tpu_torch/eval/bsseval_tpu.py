@@ -47,11 +47,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from waveunet_tpu_torch.device import (DeviceLike, refuse_multi_gpu,
-                                       resolve_device)
+from waveunet_tpu_torch.device import DeviceLike, resolve_device
 from waveunet_tpu_torch.eval.bsseval import (FILTER_LEN, _nfft_for,
                                              bss_eval_window)
 from waveunet_tpu_torch.ops.conv import tf32_scope
+from waveunet_tpu_torch.parallel.mesh import Mesh, check_mesh, merge_disjoint_
 
 NAMES = ("SDR", "ISR", "SIR", "SAR")
 RIDGES = (1e-5, 1e-4)  # the metrics' ridge, and the gate's second one
@@ -198,15 +198,25 @@ def device_windows(track: torch.Tensor, starts: np.ndarray, win: int
     return track[:, idx].permute(1, 0, 2, 3)
 
 
+def _merge(arr: np.ndarray, mesh: Optional[Mesh]) -> np.ndarray:
+    """``arr`` with every rank's disjoint entries, bit for bit."""
+    if mesh is None:
+        return arr
+    return merge_disjoint_(torch.from_numpy(arr), mesh).numpy()
+
+
 def device_window_metrics(references: np.ndarray, estimates: np.ndarray,
                           rate: int, win_s: float = 1.0, hop_s: float = 1.0,
                           filter_len: int = FILTER_LEN, refine_iters: int = 2,
                           window_batch: int = 8, with_gate: bool = True,
-                          device: DeviceLike = None
+                          device: DeviceLike = None, mesh=None
                           ) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
     """Every window's fp32 metrics and gate, before any host fallback:
-    ({metric: [S, n_frames]}, [n_frames] gates)."""
-    dev = resolve_device(device)
+    ({metric: [S, n_frames]}, [n_frames] gates). With ``mesh`` each batch
+    of ``window_batch`` windows is split over the ranks in rank order, on
+    ``mesh.device``, and every rank returns every window."""
+    mesh = check_mesh(mesh)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     S, n, C = references.shape
     win = int(win_s * rate)
     hop = int(hop_s * rate)
@@ -214,18 +224,25 @@ def device_window_metrics(references: np.ndarray, estimates: np.ndarray,
     nfft = _nfft_for(win)
     out = np.full((4, S, len(starts)), np.nan)
     gates = np.zeros(len(starts))
+    per, lo = window_batch, 0
+    if mesh is not None:  # this rank's share of each batch; zeros elsewhere
+        out[:] = 0.0
+        per = window_batch // mesh.size
+        lo = mesh.rank * per
     with torch.no_grad(), tf32_scope(False):
         refs = torch.from_numpy(np.asarray(references, np.float32)).to(dev)
         ests = torch.from_numpy(np.asarray(estimates, np.float32)).to(dev)
-        for b0 in range(0, len(starts), window_batch):
-            chunk = starts[b0:b0 + window_batch]
+        for b0 in range(lo, len(starts), window_batch):
+            chunk = starts[b0:b0 + per]
+            if not len(chunk):
+                continue
             res, gate = _window_kernel(device_windows(refs, chunk, win),
                                        device_windows(ests, chunk, win),
                                        filter_len, nfft, refine_iters,
                                        with_gate)                 # [B, 4, S]
             out[:, :, b0:b0 + len(chunk)] = res.permute(1, 2, 0).cpu().numpy()
             gates[b0:b0 + len(chunk)] = gate.cpu().numpy()
-    return dict(zip(NAMES, out)), gates
+    return dict(zip(NAMES, _merge(out, mesh))), _merge(gates, mesh)
 
 
 def bss_eval_framewise_tpu(references: np.ndarray, estimates: np.ndarray,
@@ -245,11 +262,20 @@ def bss_eval_framewise_tpu(references: np.ndarray, estimates: np.ndarray,
     are recomputed on the host in fp64 (``bsseval.bss_eval_window``), fanned
     out over ``host_pool`` (an executor) when given. ``hybrid_tol=None``
     scores every window on the device at one ridge. Runs on the card unless
-    ``device="cpu"``; ``mesh`` (several cards) is not ported."""
-    refuse_multi_gpu(mesh)
+    ``device="cpu"``.
+
+    With ``mesh`` (every rank calls it with the same inputs) the windows
+    shard over the ranks, as the engine's windows do: ``window_batch`` is
+    rounded up to a multiple of the mesh size, each rank scores its share
+    of every batch on ``mesh.device`` and its share of the flagged windows
+    on the host, and every rank returns every window's metrics."""
+    mesh = check_mesh(mesh)
+    if mesh is not None:
+        window_batch = -(-window_batch // mesh.size) * mesh.size
     out, gates = device_window_metrics(
         references, estimates, rate, win_s, hop_s, filter_len, refine_iters,
-        window_batch, with_gate=hybrid_tol is not None, device=device)
+        window_batch, with_gate=hybrid_tol is not None, device=device,
+        mesh=mesh)
     if hybrid_tol is None:
         return out
     S, n, C = references.shape
@@ -261,15 +287,20 @@ def bss_eval_framewise_tpu(references: np.ndarray, estimates: np.ndarray,
         sl = slice(starts[fi], min(starts[fi] + win, n))
         return references[:, sl], estimates[:, sl], filter_len
 
+    mine = flagged if mesh is None else flagged[mesh.rank::mesh.size]
     if host_pool is not None:
         futs = [(fi, host_pool.submit(bss_eval_window, *args(fi)))
-                for fi in flagged]
+                for fi in mine]
         results = [(fi, f.result()) for fi, f in futs]
     else:
-        results = [(fi, bss_eval_window(*args(fi))) for fi in flagged]
+        results = [(fi, bss_eval_window(*args(fi))) for fi in mine]
+    fixed = np.zeros((4, S, len(starts)))
     for fi, res in results:
-        for k in NAMES:
-            out[k][:, fi] = res[k]
+        for j, k in enumerate(NAMES):
+            fixed[j, :, fi] = res[k]
+    fixed = _merge(fixed, mesh)
+    for j, k in enumerate(NAMES):
+        out[k][:, flagged] = fixed[j][:, flagged]
     if len(flagged):
         print(f"  [tpu_bss] {len(flagged)}/{len(starts)} "
               f"regularization-sensitive windows recomputed on host fp64")

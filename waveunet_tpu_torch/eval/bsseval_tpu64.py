@@ -36,8 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from waveunet_tpu_torch.device import (DeviceLike, refuse_multi_gpu,
-                                       resolve_device)
+from waveunet_tpu_torch.device import DeviceLike, resolve_device
 from waveunet_tpu_torch.eval.bsseval import FILTER_LEN
 from waveunet_tpu_torch.eval.bsseval_tpu import (NAMES, device_windows,
                                                  window_starts)
@@ -181,13 +180,13 @@ def bss_eval_framewise_tpu64(references: np.ndarray, estimates: np.ndarray,
                              rate: int, win_s: float = 1.0,
                              hop_s: float = 1.0,
                              filter_len: int = FILTER_LEN,
-                             window_batch: int = 4, mesh=None,
+                             window_batch: int = 4,
                              device: DeviceLike = None
                              ) -> Dict[str, np.ndarray]:
     """Framewise metrics in device fp64; the contract of
     ``bsseval.bss_eval_framewise``. references/estimates: [S, n, C]. Runs
-    on the card unless ``device="cpu"``; ``mesh`` is not ported."""
-    refuse_multi_gpu(mesh)
+    on the card unless ``device="cpu"``. It takes no mesh, as the JAX
+    package's takes none: a pod scores disjoint track shards instead."""
     dev = resolve_device(device)
     S, n, C = references.shape
     win = int(win_s * rate)

@@ -13,6 +13,14 @@ installed. Scoring runs in a pool of ``spawn`` worker processes (the host
 fp64 scorer), or in one thread beside the separation (the device scorers,
 which share the card with it). A worker imports this module and only scores
 numpy arrays: importing it starts no CUDA context and builds no kernel.
+
+On a ``mesh`` of several ranks (every rank calls ``evaluate_musdb``) the
+separation and the fp32 device scorer shard each track's windows over the
+ranks; collectives must come in the same order on every rank, so the
+device scorer then runs in line with the separation, not beside it. Rank
+0 scores with the host scorer and writes the JSONs and estimates. A pod
+more often scores disjoint track shards, one card each
+(``shard_index``/``shard_count``, as the CLI does).
 """
 
 from __future__ import annotations
@@ -24,11 +32,12 @@ import numpy as np
 
 from waveunet_tpu_torch.config import Config
 from waveunet_tpu_torch.data.audio_io import load, write_wav
-from waveunet_tpu_torch.device import DeviceLike, refuse_multi_gpu
+from waveunet_tpu_torch.device import DeviceLike
 from waveunet_tpu_torch.eval.aggregate import (compute_mean_metrics,
                                                write_track_json)
 from waveunet_tpu_torch.eval.bsseval import bss_eval_framewise
 from waveunet_tpu_torch.ops.resample import resample
+from waveunet_tpu_torch.parallel.mesh import barrier, check_mesh
 
 _EVAL_TARGETS = {
     "voice": ("vocals", "accompaniment"),
@@ -125,14 +134,15 @@ def stack_sources(cfg: Config, targets: Dict[str, np.ndarray],
 
 
 def _bss_eval(refs: np.ndarray, ests: np.ndarray, rate: int, win_s: float,
-              tpu_bss=False, device: DeviceLike = None
+              tpu_bss=False, device: DeviceLike = None, mesh=None
               ) -> Dict[str, np.ndarray]:
     """Framewise metrics. ``tpu_bss``: False, the ``museval`` package where
     it is installed (the reference's scorer, ``Evaluate.py:71``), else the
     host fp64 scorer (``eval/bsseval.py``); True or "fp32", the batched fp32
-    device scorer with its two-ridge gate (``eval/bsseval_tpu.py``); "f64",
-    the fp64 device scorer (``eval/bsseval_tpu64.py``: the host algorithm
-    with the exact assembly)."""
+    device scorer with its two-ridge gate (``eval/bsseval_tpu.py``), its
+    windows sharded over ``mesh``; "f64", the fp64 device scorer
+    (``eval/bsseval_tpu64.py``: the host algorithm with the exact assembly),
+    which takes no mesh."""
     if isinstance(tpu_bss, str) and tpu_bss == "f64":
         from waveunet_tpu_torch.eval.bsseval_tpu64 import (
             bss_eval_framewise_tpu64)
@@ -141,8 +151,10 @@ def _bss_eval(refs: np.ndarray, ests: np.ndarray, rate: int, win_s: float,
     if tpu_bss:
         from waveunet_tpu_torch.eval.bsseval_tpu import (
             bss_eval_framewise_tpu)
+        wb = 8 if mesh is None else max(8, mesh.size)
         return bss_eval_framewise_tpu(refs, ests, rate, win_s=win_s,
-                                      hop_s=win_s, device=device)
+                                      hop_s=win_s, window_batch=wb,
+                                      mesh=mesh, device=device)
     try:
         import museval.metrics as mm  # type: ignore
 
@@ -155,9 +167,10 @@ def _bss_eval(refs: np.ndarray, ests: np.ndarray, rate: int, win_s: float,
 
 
 def _score_and_write(cfg, name, mix_len, rate, targets, preds, results_dir,
-                     estimates_dir, win_s, tpu_bss=False, device=None):
+                     estimates_dir, win_s, tpu_bss=False, device=None,
+                     mesh=None):
     eval_names, refs, ests = stack_sources(cfg, targets, preds, mix_len)
-    res = _bss_eval(refs, ests, rate, win_s, tpu_bss, device)
+    res = _bss_eval(refs, ests, rate, win_s, tpu_bss, device, mesh)
     per_target = {s: {k: res[k][i] for k in res}
                   for i, s in enumerate(eval_names)}
     if results_dir is not None:
@@ -236,20 +249,29 @@ def evaluate_musdb(cfg: Config, params, model_state=None, mesh=None,
     (``aggregate=False`` leaves that to the caller). If a scoring worker
     dies, the remaining tracks are scored in-process.
 
-    Runs on the card unless ``device="cpu"``; ``mesh`` is not ported."""
+    Runs on the card unless ``device="cpu"``. With ``mesh`` it runs on
+    ``mesh.device`` and shards every track's windows over the ranks (the
+    module docstring); every rank returns the statistics."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
     from waveunet_tpu_torch.infer.engine import Separator
 
-    refuse_multi_gpu(mesh)
-    sep = Separator(cfg, params, model_state=model_state, device=device)
+    mesh = check_mesh(mesh)
+    sep = Separator(cfg, params, model_state=model_state, device=device,
+                    mesh=mesh)
     if self_check:
         self_check_separator(cfg, sep)
     results_dir = os.path.join(output_path, subset)
     os.makedirs(results_dir, exist_ok=True)
+    multi = mesh is not None and mesh.size > 1
+    is_main = mesh is None or mesh.rank == 0
 
-    if tpu_bss:
+    if multi and (tpu_bss or not is_main):
+        # the ranks' collectives stay in one order: scoring in line
+        pool = None
+        cap = 0
+    elif tpu_bss:
         # the device scorers share the card with the separation
         pool = ThreadPoolExecutor(max_workers=1)
         cap = 2
@@ -267,6 +289,10 @@ def evaluate_musdb(cfg: Config, params, model_state=None, mesh=None,
 
     def _submit(args):
         nonlocal pool_broken
+        if pool is None:
+            if tpu_bss or is_main:  # a rank without a scorer skips
+                _score_inline(args)
+            return
         if not pool_broken:
             try:
                 pending.append((args, pool.submit(_score_and_write, *args)))
@@ -321,17 +347,22 @@ def evaluate_musdb(cfg: Config, params, model_state=None, mesh=None,
                 print(f"Separating {name}...")
                 preds = separate_track(sep, cfg, mix, rate)
                 _submit((cfg, name, mix.shape[0], rate, targets, preds,
-                         results_dir, output_path, win_s, tpu_bss,
-                         sep.device if tpu_bss else None))
+                         results_dir if is_main else None,
+                         output_path if is_main else None, win_s, tpu_bss,
+                         sep.device if tpu_bss else None,
+                         mesh if tpu_bss and multi else None))
                 _drain(cap)
             count += 1
             if max_tracks is not None and count >= max_tracks:
                 break
         _drain(0)
     finally:
-        pool.shutdown()
+        if pool is not None:
+            pool.shutdown()
     for name, e in errors:
         print(f"WARNING: scoring failed for {name}: {e}")
+    if multi:  # rank 0's JSONs are written
+        barrier(mesh)
 
     if not aggregate:
         return None

@@ -29,6 +29,17 @@ The host pipeline of ``separate``:
 every chunk, the wire round trip, a device stitch, the difference source)
 and returns a scalar checksum: the bench's headline path, captured as one
 CUDA graph per song length on the card.
+
+Window parallelism (``mesh``, ``parallel/mesh.py``; every rank calls
+``separate`` with the same song): a chunk holds ``infer_batch`` windows a
+rank, rank r runs rows ``[r*infer_batch, (r+1)*infer_batch)`` of each
+chunk, and the chunk's outputs are gathered exactly onto every rank, so
+every rank returns the same stems, and a world of one is the single-device
+engine bit for bit. Each rank stages the song itself and slabs are off;
+on several ranks the tail chunk stays at the full batch, as in the JAX
+package. ``precompile`` captures the per-rank forward; the gather stays
+outside the graphs.
+``resident_sweep`` is the single-card bench path and takes no mesh.
 """
 
 from __future__ import annotations
@@ -49,6 +60,8 @@ from waveunet_tpu_torch.infer.wire import (INT16_NONFINITE, dequantize,
 from waveunet_tpu_torch.ops import shapes
 from waveunet_tpu_torch.ops.kernels import Graph, capture
 from waveunet_tpu_torch.ops.resample import resample
+from waveunet_tpu_torch.parallel.mesh import (barrier, check_mesh,
+                                              gather_rows, put_replicated)
 
 __all__ = ["INT16_NONFINITE", "Separator", "separate_file",
            "window_positions"]
@@ -110,24 +123,38 @@ class Separator:
     Wave-U-Net forward at inference, or to the spectrogram U-Net's with
     ``model_state`` (its batch-norm statistics) for ``unet_spectrogram``.
     ``h2d_mode`` is "song", "slabs" or None (slabs when a song takes two or
-    more chunks and the slabs' context overlap adds at most a third)."""
+    more chunks and the slabs' context overlap adds at most a third).
+    ``mesh`` shards each chunk's windows over its ranks, on ``mesh.device``
+    with rank 0's parameters (the module docstring)."""
 
     def __init__(self, cfg: Config, params, model_state=None,
                  forward_fn: Optional[Forward] = None,
-                 h2d_mode: Optional[str] = None, device: DeviceLike = None):
+                 h2d_mode: Optional[str] = None, device: DeviceLike = None,
+                 mesh=None):
         if h2d_mode not in (None, "song", "slabs"):
             raise ValueError(f"h2d_mode {h2d_mode!r}: use 'song', 'slabs' "
                              f"or None")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = check_mesh(mesh)
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
         self.params = tree_to(params, self.device)
         self.model_state = tree_to(model_state or {}, self.device)
+        if self.mesh is not None:
+            self.params = put_replicated(self.params, self.mesh)
+            self.model_state = put_replicated(self.model_state, self.mesh)
         frames = cfg.infer_num_frames or cfg.num_frames
         if frames == -1:  # auto: smallest pow2 window with <= 3x overlap
             frames = shapes.auto_infer_frames(cfg)
         self.in_len, self.out_len = shapes.get_padding(cfg, frames)
         self.pad = (self.in_len - self.out_len) // 2
-        self.batch = max(1, cfg.infer_batch)
+        # windows a chunk: each rank runs local_batch of them
+        self.local_batch = max(1, cfg.infer_batch)
+        self.batch = self.local_batch * (self.mesh.size if self.mesh else 1)
+        # several ranks need equal rows in every chunk; one rank keeps the
+        # single-device schedule (the conv kernel's launch plan, and so its
+        # rounding, follows the chunk's size)
+        self._full_tail = self.mesh is not None and self.mesh.size > 1
         self._h2d_mode = h2d_mode
         self._wire16 = cfg.infer_wire_dtype == "int16"
         self._wire_dtype = torch.int16 if self._wire16 else torch.float32
@@ -180,11 +207,15 @@ class Separator:
 
     def _chunk_sizes(self, n_win: int) -> List[int]:
         """Full batches, then a power-of-two tail: one chunk, or two when
-        that pads fewer slots (11 windows at batch 16 -> 8 + 4, not 16)."""
+        that pads fewer slots (11 windows at batch 16 -> 8 + 4, not 16). On
+        a mesh of several ranks the tail is a full batch, which they
+        share."""
         bs = self.batch
         sizes = [bs] * (n_win // bs)
         rem = n_win % bs
-        if rem:
+        if rem and self._full_tail:
+            sizes.append(bs)
+        elif rem:
             single = min(shapes.pow2_ceil(rem), bs)
             lo = 1 << (rem.bit_length() - 1)  # largest pow2 <= rem
             if rem > lo and lo + shapes.pow2_ceil(rem - lo) < single:
@@ -194,7 +225,10 @@ class Separator:
         return sizes
 
     def _pow2_sizes(self) -> List[int]:
-        """Every chunk size ``_chunk_sizes`` can give, largest first."""
+        """Every chunk size ``_chunk_sizes`` can give, largest first (a
+        rank's share of it on a mesh of several ranks)."""
+        if self._full_tail:
+            return [self.local_batch]
         ks, k = [self.batch], 1
         while k < self.batch:
             ks.append(k)
@@ -211,7 +245,8 @@ class Separator:
         to ``max_song_s`` seconds (longer songs run eagerly); slab-mode
         graphs each read a static slab of their size. All share one memory
         pool, the largest captured first. ``progress`` receives one line
-        per graph."""
+        per graph. On a mesh: song mode only, and on several ranks only
+        the rank's full-batch forward, the one program it runs."""
         if self.device.type != "cuda":
             raise RuntimeError("precompile captures CUDA graphs; this "
                                "Separator runs on the CPU")
@@ -223,9 +258,10 @@ class Separator:
                                         device=self.device)
         pool = torch.cuda.graph_pool_handle()
         ks = self._pow2_sizes()
-        total = 2 * len(ks)
+        modes = ("song",) if self.mesh is not None else ("song", "slabs")
+        total = len(modes) * len(ks)
         for k in ks:
-            for mode in ("song", "slabs"):
+            for mode in modes:
                 t0 = time.perf_counter()
                 inp = (self._static_song if mode == "song" else torch.zeros(
                     ((k - 1) * self.out_len + self.in_len, C),
@@ -243,7 +279,7 @@ class Separator:
     def resident_chunk_sizes(self, n_win: int) -> List[int]:
         """The chunk schedule ``resident_sweep`` runs: one exact chunk for a
         song below one batch, the pow2 split tail otherwise."""
-        if n_win < self.batch:
+        if self.mesh is None and n_win < self.batch:
             return [n_win]
         return self._chunk_sizes(n_win)
 
@@ -265,6 +301,9 @@ class Separator:
         graph on its first call, for its song length and the params of that
         call; each call then replays it, and its outputs are overwritten by
         the next call."""
+        if self.mesh is not None:
+            raise ValueError("resident_sweep is the single-card bench path; "
+                             "build the Separator without a mesh")
         if n_total < self.out_len:
             raise ValueError(f"song shorter than one output window "
                              f"({n_total} < {self.out_len}); pad first")
@@ -414,9 +453,9 @@ class Separator:
         pos_pad = np.full((int(offsets[-1]),), positions[-1], np.int64)
         pos_pad[:n_win] = positions
         t = n_total + 2 * self.pad
-        use_slabs = self._h2d_mode == "slabs" or (
+        use_slabs = self.mesh is None and (self._h2d_mode == "slabs" or (
             self._h2d_mode is None and len(sizes) >= 2
-            and 3 * (self.in_len - self.out_len) <= self.batch * self.out_len)
+            and 3 * (self.in_len - self.out_len) <= self.batch * self.out_len))
         # room for the last slab of a chunk, past the song's end, as zeros
         song = self._stage(mix, t + (self.batch - 1) * self.out_len
                            if use_slabs else t)
@@ -452,6 +491,11 @@ class Separator:
                 else:
                     inp = slab_host
                 res = self._run_chunk("slabs", inp, pos)
+            elif self.mesh is not None:  # this rank's rows, gathered
+                r, b = self.mesh.rank, k // self.mesh.size
+                res = self._run_chunk("song", song_dev,
+                                      pos[r * b:(r + 1) * b])
+                res = {k: gather_rows(v, self.mesh) for k, v in res.items()}
             else:
                 res = self._run_chunk("song", song_dev, pos)
             host = {}
@@ -489,14 +533,17 @@ class Separator:
 def separate_file(cfg: Config, params, input_path: str,
                   output_path: Optional[str] = None,
                   device: DeviceLike = None,
-                  model_state=None) -> Dict[str, str]:
+                  model_state=None, mesh=None) -> Dict[str, str]:
     """Separate a PCM WAV file into one 16-bit WAV per source, written next
     to the input or into ``output_path``; ``model_state`` carries the
-    spectrogram model's batch-norm statistics. Returns {source: path}."""
+    spectrogram model's batch-norm statistics. Returns {source: path}. On a
+    ``mesh`` every rank separates and rank 0 writes; the call returns once
+    the files are written."""
     from waveunet_tpu_torch.data.audio_io import load_wav, write_wav
 
     audio, sr = load_wav(input_path)
-    sep = Separator(cfg, params, model_state=model_state, device=device)
+    sep = Separator(cfg, params, model_state=model_state, device=device,
+                    mesh=mesh)
     preds = sep.separate(audio, sr)
     folder, fname = os.path.split(input_path)
     out_dir = output_path or folder or "."
@@ -508,6 +555,9 @@ def separate_file(cfg: Config, params, input_path: str,
         if cfg.mono_downmix and audio.shape[1] > 1:
             est = np.tile(est, [1, audio.shape[1]])
         path = os.path.join(out_dir, f"{fname}_{name}.wav")
-        write_wav(path, est, sr)
+        if sep.mesh is None or sep.mesh.rank == 0:
+            write_wav(path, est, sr)
         written[name] = path
+    if sep.mesh is not None:
+        barrier(sep.mesh)
     return written

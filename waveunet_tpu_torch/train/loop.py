@@ -17,8 +17,13 @@ Counterpart of the single-process path of ``waveunet_tpu/train/loop.py``:
     resume, as the reference restores every variable.
 
 The entry points run on the CUDA card unless given ``device="cpu"``.
-Multi-GPU training is not ported: a ``mesh`` or an initialised process
-group of more than one process raises.
+
+Pod mode (``optimise`` in a process group of several ranks, one card a
+rank, with a ``mesh`` over them; ``parallel/``): every rank runs this same
+loop. Songs shard over the ranks, each rank feeds its rows of the global
+batch, the step all-reduces the gradients, and every loss comes out of a
+collective, so the ranks take the same early-stop decisions. Only rank 0
+writes the metrics, ``config.json``, checkpoints and ``best.txt``.
 """
 
 from __future__ import annotations
@@ -32,10 +37,11 @@ import numpy as np
 import torch
 
 from waveunet_tpu_torch.config import Config
-from waveunet_tpu_torch.data.pipeline import BatchPipeline
-from waveunet_tpu_torch.device import (DeviceLike, refuse_multi_gpu,
-                                       resolve_device)
+from waveunet_tpu_torch.data.pipeline import BatchPipeline, EmptyShardError
+from waveunet_tpu_torch.device import DeviceLike, resolve_device
 from waveunet_tpu_torch.ops import shapes
+from waveunet_tpu_torch.parallel import distributed as D
+from waveunet_tpu_torch.parallel.mesh import barrier, check_mesh, world
 from waveunet_tpu_torch.train import checkpoint as ckpt
 from waveunet_tpu_torch.train.metrics import MetricLogger
 from waveunet_tpu_torch.train.step import (make_eval_step, make_optimizer,
@@ -194,20 +200,128 @@ def evaluate(cfg: Config, params, model_state, eval_step,
     return total
 
 
+def _pod_host_evaluate(cfg: Config, params, model_state, partition: str,
+                       in_len: int, out_len: int, device: torch.device):
+    """This rank's (loss sum, batch count) over its host pipeline shard, for
+    ``pod_weighted_mean``; an empty shard is (0.0, 0)."""
+    try:
+        pipe = D.make_pod_pipeline(cfg, partition, in_len, out_len,
+                                   seed=cfg.seed)
+    except EmptyShardError as e:
+        print(f"[pod {world()[0]}] empty {partition} shard ({e})")
+        return 0.0, 0
+    eval_step = make_eval_step(cfg, device=device)
+    total, n = 0.0, 0
+    for batch in pipe.eval_batches():
+        total += float(eval_step(params, model_state,
+                                 _device_batch(batch, device)))
+        n += 1
+    return total, n
+
+
+def _pod_train_source(rcfg: Config, bank, mesh, in_len: int, out_len: int,
+                      rnd: int, step: int):
+    """(bank, fused epoch or None, batch iterator or None) of a pod round,
+    from the first source that works: the mesh-sharded bank (the fused
+    epoch), this rank's own bank, or this rank's host pipeline shard."""
+    from waveunet_tpu_torch.data.device_cache import ShardedBank
+
+    rank = world()[0]
+    if bank is None and rcfg.device_data and rcfg.scan_epoch:
+        try:
+            bank = D.make_sharded_bank(rcfg, "train", in_len, out_len, mesh,
+                                       batch_size=rcfg.batch_size)
+            print(f"[pod {rank}] device-sharded bank: {bank.local_songs} "
+                  f"songs / {bank.nbytes() / 1e6:.0f} MB on {mesh.device}")
+        except (FileNotFoundError, ValueError) as e:
+            print(f"pod sharded bank unavailable ({e}); trying per-host bank")
+    if isinstance(bank, ShardedBank):
+        bank.set_batch(rcfg.batch_size)
+        epoch_fn = make_scanned_epoch(rcfg, rcfg.init_sup_sep_lr,
+                                      rcfg.epoch_it, bank.sample,
+                                      chunk=rcfg.scan_chunk, mesh=mesh,
+                                      presharded_batch=True)
+        return bank, epoch_fn, None
+    if bank is None and rcfg.device_data:
+        try:
+            bank = D.make_pod_bank(rcfg, "train", in_len, out_len,
+                                   device=mesh.device)
+            print(f"[pod {rank}] per-host bank: {bank.n_songs} songs, "
+                  f"{bank.nbytes() / 1e6:.0f} MB on {mesh.device}")
+        except (FileNotFoundError, ValueError) as e:
+            print(f"pod device bank unavailable ({e}); using host pipeline")
+    elif bank is not None:
+        bank.set_batch(rcfg.batch_size // mesh.size)
+    if bank is not None:
+        # from the absolute step, as the fused epoch's stream
+        local_it = bank.batches(rcfg.seed + rnd, start=step)
+    else:
+        pipe = D.make_pod_pipeline(rcfg, "train", in_len, out_len,
+                                   seed=rcfg.seed + rnd)
+        local_it = pipe.prefetched(pipe.train_batches())
+    return bank, None, (D.global_batch_from_local(mesh, b) for b in local_it)
+
+
+def _pod_eval_source(rcfg: Config, partition: str, in_len: int, out_len: int,
+                     device: torch.device):
+    """This rank's ``EvalBank`` of ``partition``, or None (its host
+    pipeline shard then)."""
+    if not rcfg.device_data:
+        return None
+    try:
+        bank = D.make_pod_eval_bank(rcfg, partition, in_len, out_len,
+                                    batch_size=rcfg.batch_size, device=device)
+        print(f"[pod {world()[0]}] per-host {partition} bank: "
+              f"{bank.n_windows} windows, {bank.nbytes() / 1e6:.0f} MB")
+        return bank
+    except (FileNotFoundError, ValueError) as e:
+        print(f"pod device eval bank unavailable ({e}); using host pipeline "
+              f"shard")
+        return None
+
+
+def _pod_loss(rcfg, bank, params, model_state, partition, in_len, out_len,
+              device) -> float:
+    """The pod-wide mean loss of ``partition``, equal on every rank."""
+    if bank is not None:
+        s, c = bank.loss_sums(params, model_state)
+    else:
+        s, c = _pod_host_evaluate(rcfg, params, model_state, partition,
+                                  in_len, out_len, device)
+    return D.pod_weighted_mean(s, c)
+
+
 def optimise(cfg: Config, experiment_id: Optional[str] = None, mesh=None,
              resume_path: Optional[str] = None,
              max_epochs_per_round: Optional[int] = None,
              device: DeviceLike = None) -> Tuple[str, float]:
     """Two early-stopped rounds of training; returns (best checkpoint path,
-    test loss of the best checkpoint)."""
-    refuse_multi_gpu(mesh)
-    dev = resolve_device(device)
+    test loss of the best checkpoint).
+
+    In a process group of several ranks every rank calls this with the same
+    ``mesh`` (``parallel.mesh.make_mesh()``), and it runs on
+    ``mesh.device``; without a mesh there it raises ``ValueError``. The
+    experiment id then defaults to one the ranks agree on."""
+    mesh = check_mesh(mesh)
+    rank, n_proc = world()
+    pod = n_proc > 1
+    is_main = rank == 0
+    if pod and mesh is None:
+        raise ValueError("pod training requires a mesh over the global "
+                         "device set (parallel.mesh.make_mesh())")
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if experiment_id is None:
-        experiment_id = str(np.random.randint(0, 1_000_000))
+        if pod:
+            import hashlib
+            experiment_id = "pod-" + hashlib.sha1(
+                cfg.to_json().encode()).hexdigest()[:8]
+        else:
+            experiment_id = str(np.random.randint(0, 1_000_000))
     in_len, out_len = shapes.get_padding(cfg, cfg.num_frames)
-    logger = MetricLogger(cfg.log_dir, experiment_id)
-    with open(os.path.join(logger.dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    logger = MetricLogger(cfg.log_dir, experiment_id) if is_main else None
+    if is_main:
+        with open(os.path.join(logger.dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
 
     state = init_state(cfg, device=dev)
     print(f"Sep_Vars: {num_params(state.params)}")
@@ -229,32 +343,42 @@ def optimise(cfg: Config, experiment_id: Optional[str] = None, mesh=None,
             print("Finished first round of training, entering fine-tuning "
                   "stage")
         # The Adam state carries over: only the learning rate changes.
-        _, step_fn = make_train_step(rcfg, rcfg.init_sup_sep_lr, device=dev)
+        _, step_fn = make_train_step(rcfg, rcfg.init_sup_sep_lr, device=dev,
+                                     mesh=mesh)
         eval_step = make_eval_step(rcfg, device=dev)
         epoch_fn = None
         train_it = None
         key = rcfg.seed + rnd
-        if bank is None:
-            bank, train_it = make_train_source(rcfg, in_len, out_len,
-                                               seed_offset=rnd, device=dev)
+        if pod:
+            bank, epoch_fn, train_it = _pod_train_source(
+                rcfg, bank, mesh, in_len, out_len, rnd, state.step)
         else:
-            # the round-1 bank: only the batch changes, nothing uploads again
-            bank.set_batch(rcfg.batch_size)
-        if bank is not None and cfg.scan_epoch:
-            epoch_fn = make_scanned_epoch(rcfg, rcfg.init_sup_sep_lr,
-                                          rcfg.epoch_it, bank.sample,
-                                          chunk=rcfg.scan_chunk, device=dev)
-        elif bank is not None:
-            # from the absolute step, the fused epoch's stream
-            train_it = bank.batches(key, start=state.step)
+            if bank is None:
+                bank, train_it = make_train_source(rcfg, in_len, out_len,
+                                                   seed_offset=rnd,
+                                                   device=dev)
+            else:
+                # the round-1 bank: only the batch changes, nothing uploads
+                bank.set_batch(rcfg.batch_size)
+            if bank is not None and cfg.scan_epoch:
+                epoch_fn = make_scanned_epoch(rcfg, rcfg.init_sup_sep_lr,
+                                              rcfg.epoch_it, bank.sample,
+                                              chunk=rcfg.scan_chunk,
+                                              device=dev, mesh=mesh)
+            elif bank is not None:
+                # from the absolute step, the fused epoch's stream
+                train_it = bank.batches(key, start=state.step)
 
         if not valid_bank_tried:
-            valid_bank = make_eval_source(rcfg, "valid", in_len, out_len,
-                                          batch_size=rcfg.batch_size,
-                                          device=dev)
+            valid_bank = (_pod_eval_source(rcfg, "valid", in_len, out_len,
+                                           dev) if pod else
+                          make_eval_source(rcfg, "valid", in_len, out_len,
+                                           batch_size=rcfg.batch_size,
+                                           device=dev))
             valid_bank_tried = True
         elif valid_bank is not None:
-            valid_bank.set_batch(rcfg.batch_size)
+            # a rank's share of the global batch in a pod
+            valid_bank.set_batch(rcfg.batch_size // n_proc)
 
         worse = 0
         epochs_this_round = 0
@@ -271,12 +395,20 @@ def optimise(cfg: Config, experiment_id: Optional[str] = None, mesh=None,
                 state, train_loss = train_one_epoch(rcfg, state, step_fn,
                                                     train_it, logger)
             t_train = time.time()
-            path = ckpt.save_checkpoint_async(
-                cfg.model_base_dir, experiment_id, state.step,
-                state.as_dict(), prune_keep=cfg.keep_checkpoints,
-                protect=(best_path,))
+            if is_main:
+                path = ckpt.save_checkpoint_async(
+                    cfg.model_base_dir, experiment_id, state.step,
+                    state.as_dict(), prune_keep=cfg.keep_checkpoints,
+                    protect=(best_path,))
+            else:  # rank 0 writes it
+                path = ckpt.step_path(cfg.model_base_dir, experiment_id,
+                                      state.step)
             t_ckpt = time.time()
-            if valid_bank is not None:
+            if pod:
+                curr = _pod_loss(rcfg, valid_bank, state.params,
+                                 state.model_state, "valid", in_len, out_len,
+                                 dev)
+            elif valid_bank is not None:
                 curr = valid_bank.evaluate(state.params, state.model_state)
             else:
                 valid_pipe = BatchPipeline(rcfg, "valid", in_len, out_len,
@@ -288,10 +420,11 @@ def optimise(cfg: Config, experiment_id: Optional[str] = None, mesh=None,
                   f"checkpoint {t_ckpt - t_train:.1f}s | "
                   f"valid {t_valid - t_ckpt:.1f}s | "
                   f"total {t_valid - t_ep:.1f}s")
-            logger.log(state.step, valid_loss=curr,
-                       epoch_wall_s=t_valid - t_ep,
-                       valid_wall_s=t_valid - t_ckpt,
-                       checkpoint_wall_s=t_ckpt - t_train)
+            if logger is not None:
+                logger.log(state.step, valid_loss=curr,
+                           epoch_wall_s=t_valid - t_ep,
+                           valid_wall_s=t_valid - t_ckpt,
+                           checkpoint_wall_s=t_ckpt - t_train)
             epoch += 1
             epochs_this_round += 1
             if curr < best_loss:
@@ -306,27 +439,38 @@ def optimise(cfg: Config, experiment_id: Optional[str] = None, mesh=None,
 
                 # behind the write of `path`: a reader of the marker never
                 # finds a directory still being written
-                ckpt.after_saves(_write_marker)
+                if is_main:
+                    ckpt.after_saves(_write_marker)
             else:
                 worse += 1
                 print(f"Validation worsened to {curr}")
 
     print(f"TRAINING FINISHED - testing best model {best_path}")
     ckpt.wait_for_saves()
+    if pod:  # every rank reads what rank 0 wrote
+        barrier(mesh)
     if best_path is not None:
         r = _to(ckpt.restore_checkpoint(best_path), dev)
         params, model_state = r["params"], r["model_state"]
     else:
         params, model_state = state.params, state.model_state
-    test_bank = make_eval_source(cfg, "test", in_len, out_len,
-                                 batch_size=cfg.batch_size, device=dev)
-    if test_bank is not None:
-        test_loss = test_bank.evaluate(params, model_state)
+    if pod:
+        test_loss = _pod_loss(cfg, _pod_eval_source(cfg, "test", in_len,
+                                                    out_len, dev),
+                              params, model_state, "test", in_len, out_len,
+                              dev)
     else:
-        test_pipe = BatchPipeline(cfg, "test", in_len, out_len, seed=cfg.seed)
-        test_loss = evaluate(cfg, params, model_state,
-                             make_eval_step(cfg, device=dev),
-                             test_pipe.eval_batches())
-    logger.log(state.step, test_loss=test_loss)
-    logger.close()
+        test_bank = make_eval_source(cfg, "test", in_len, out_len,
+                                     batch_size=cfg.batch_size, device=dev)
+        if test_bank is not None:
+            test_loss = test_bank.evaluate(params, model_state)
+        else:
+            test_pipe = BatchPipeline(cfg, "test", in_len, out_len,
+                                      seed=cfg.seed)
+            test_loss = evaluate(cfg, params, model_state,
+                                 make_eval_step(cfg, device=dev),
+                                 test_pipe.eval_batches())
+    if logger is not None:
+        logger.log(state.step, test_loss=test_loss)
+        logger.close()
     return best_path or "", test_loss

@@ -22,6 +22,17 @@ CUDA graph and replayed; the absolute step lives in a device tensor the
 graph increments, and the losses land in a device vector read once a
 ``scan_chunk``. On the CPU the same function runs the same loop without a
 graph.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): each rank computes the
+loss and gradients of its rows of the global batch; one ``all_reduce``
+over a flat fp32 buffer of every gradient and the loss gives their mean
+over the ranks before Adam, so the ranks' updates are identical, and the
+parameters are broadcast from rank 0 once. A world of one is the mesh-free
+step bit for bit. Under NCCL the fused epoch captures the all-reduce in
+its CUDA graph; gloo collectives cannot be captured, so under gloo it runs
+the eager loop. The spectrogram U-Net's batch norm would need statistics
+synchronised over the ranks, which the port lacks: it trains on a mesh of
+one rank only.
 """
 
 from __future__ import annotations
@@ -39,6 +50,9 @@ from waveunet_tpu_torch.models.waveunet import apply_waveunet
 from waveunet_tpu_torch.ops.conv import precision_scope
 from waveunet_tpu_torch.ops.kernels import capture
 from waveunet_tpu_torch.ops.stft import stft_magnitude
+from waveunet_tpu_torch.parallel.mesh import (Mesh, all_reduce_,
+                                              broadcast_tree_, check_mesh,
+                                              put_batch_sharded)
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 Batch = Dict[str, torch.Tensor]
@@ -172,14 +186,54 @@ def value_and_grad(loss_fn: Callable, params: Tree, state: Tree,
     return loss.detach(), new_state, grads
 
 
+def mean_over_ranks(mesh: Mesh, loss: torch.Tensor, grads: Tree
+                    ) -> Tuple[torch.Tensor, Tree]:
+    """(loss, grads) averaged over the mesh's ranks by one ``all_reduce``
+    of a flat fp32 buffer; the values themselves in a world of one."""
+    leaves = _leaves(grads)
+    flat = torch.cat([g.reshape(-1) for g in leaves] + [loss.reshape(1)])
+    flat = all_reduce_(flat, mesh) / mesh.size
+    parts = iter(torch.split(flat[:-1], [g.numel() for g in leaves]))
+    return flat[-1], {layer: {n: next(parts).view_as(g)
+                              for n, g in leaves_.items()}
+                      for layer, leaves_ in grads.items()}
+
+
+def _replicate_once(held: Dict, mesh: Mesh, params: Tree, mstate: Tree,
+                    opt_state: Dict) -> None:
+    """Broadcast the trees from rank 0 the first time these parameter
+    tensors come by."""
+    key = tuple(t.data_ptr() for t in _leaves(params))
+    if held.get("replicated") != key:
+        broadcast_tree_((params, mstate, opt_state), mesh)
+        held["replicated"] = key
+
+
+def _mesh_and_device(cfg: Config, mesh, device: DeviceLike
+                     ) -> Tuple[Optional[Mesh], torch.device]:
+    """The checked mesh and the step's device (the mesh's, when given)."""
+    mesh = check_mesh(mesh)
+    if mesh is None:
+        return None, resolve_device(device)
+    if mesh.size > 1 and cfg.network != "unet":
+        raise ValueError(
+            "the spectrogram U-Net's batch norm needs statistics over the "
+            "whole sharded batch; it trains on a mesh of one rank only")
+    return mesh, mesh.device
+
+
 def train_step(cfg: Config, loss_fn: Callable, tx: Adam, params: Tree,
                mstate: Tree, opt_state: Dict, batch: Batch,
-               generator=None) -> torch.Tensor:
+               generator=None, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One step in place on params, model state and Adam state; returns the
-    loss as a device scalar (no host synchronisation)."""
+    loss as a device scalar (no host synchronisation). With ``mesh``,
+    ``batch`` is this rank's rows, and the loss and gradients are averaged
+    over the ranks before Adam."""
     with _step_scope(cfg):
         loss, new_state, grads = value_and_grad(loss_fn, params, mstate,
                                                 batch, generator)
+        if mesh is not None:
+            loss, grads = mean_over_ranks(mesh, loss, grads)
         tx.update_(params, grads, opt_state)
         with torch.no_grad():
             for layer, stats in new_state.items():
@@ -196,20 +250,28 @@ def _check_device(params: Tree, device: torch.device) -> None:
                          f"parameters on {got}")
 
 
-def make_train_step(cfg: Config, lr: float, device: DeviceLike = None
-                    ) -> Tuple[Callable, Callable]:
+def make_train_step(cfg: Config, lr: float, device: DeviceLike = None,
+                    mesh=None) -> Tuple[Callable, Callable]:
     """(init_opt, step) with ``step(params, state, opt_state, batch,
     generator) -> (params, state, opt_state, loss)``: the returned trees are
     the ones passed in, updated in place. The step runs on ``device`` (the
-    CUDA card by default) and refuses parameters elsewhere."""
-    dev = resolve_device(device)
+    CUDA card by default) and refuses parameters elsewhere.
+
+    With ``mesh`` it runs on ``mesh.device``, ``batch`` is this rank's rows
+    of the global batch (``put_batch_sharded``), the loss and gradients
+    are averaged over the ranks, and the first call for a set of parameter
+    tensors broadcasts them (and the model and Adam state) from rank 0."""
+    mesh, dev = _mesh_and_device(cfg, mesh, device)
     loss_fn = make_loss_fn(cfg, training=True)
     tx = make_optimizer(lr)
+    held: Dict = {}
 
     def step(params, mstate, opt_state, batch, generator=None):
         _check_device(params, dev)
+        if mesh is not None:
+            _replicate_once(held, mesh, params, mstate, opt_state)
         loss = train_step(cfg, loss_fn, tx, params, mstate, opt_state, batch,
-                          generator)
+                          generator, mesh)
         return params, mstate, opt_state, loss
 
     return tx.init, step
@@ -228,7 +290,8 @@ def step_generator(cfg: Config, step: int,
 
 def make_scanned_epoch(cfg: Config, lr: float, n_steps: int,
                        sample_fn: Callable, chunk: Optional[int] = None,
-                       device: DeviceLike = None) -> Callable:
+                       device: DeviceLike = None, mesh=None,
+                       presharded_batch: bool = False) -> Callable:
     """The fused epoch: ``epoch(params, mstate, opt_state, key, step0) ->
     (params, mstate, opt_state, losses)`` runs ``n_steps`` steps of
     ``sample_fn(key, step_tensor)`` -> train step, in place, and returns the
@@ -244,9 +307,26 @@ def make_scanned_epoch(cfg: Config, lr: float, n_steps: int,
     host. U7 draws its dropout masks from a host-seeded generator per step
     and runs the loop eagerly. Chunking and the step it starts from do not
     change the stream.
+
+    With ``mesh`` each step is the data-parallel step of
+    ``make_train_step``: ``sample_fn`` gives the global batch and each rank
+    takes its rows, or with ``presharded_batch`` (a ``ShardedBank``'s
+    ``sample``) this rank's rows already. The graph captures the NCCL
+    all-reduce; under gloo, which cannot be captured, the epoch runs the
+    eager loop, and the choice is printed.
     """
-    dev = resolve_device(device)
+    mesh, dev = _mesh_and_device(cfg, mesh, device)
     use_graph = dev.type == "cuda" and cfg.network == "unet"
+    if mesh is not None:
+        if use_graph and mesh.backend not in (None, "nccl"):
+            use_graph = False
+            why = (f"the eager loop: {mesh.backend} collectives cannot be "
+                   f"captured in a CUDA graph")
+        else:
+            why = ("one CUDA graph a step, the all-reduce captured"
+                   if use_graph else f"the eager loop on {dev}")
+        print(f"fused epoch over a {mesh.size}-rank mesh "
+              f"({mesh.backend or 'no process group'}): {why}")
     loss_fn = make_loss_fn(cfg, training=True)
     tx = make_optimizer(lr)
     chunk = chunk if chunk and chunk < n_steps else n_steps
@@ -254,8 +334,10 @@ def make_scanned_epoch(cfg: Config, lr: float, n_steps: int,
 
     def one_step(params, mstate, opt_state, key, generator=None):
         batch = sample_fn(key, static["step"])
+        if mesh is not None and not presharded_batch:
+            batch = put_batch_sharded(batch, mesh)
         loss = train_step(cfg, loss_fn, tx, params, mstate, opt_state, batch,
-                          generator)
+                          generator, mesh)
         static["losses"].index_copy_(0, static["slot"].view(1), loss.view(1))
         static["slot"].add_(1)
         static["step"].add_(1)
@@ -274,6 +356,8 @@ def make_scanned_epoch(cfg: Config, lr: float, n_steps: int,
         _check_device(params, dev)
         device = _leaves(params)[0].device
         buffers(device)
+        if mesh is not None:
+            _replicate_once(static, mesh, params, mstate, opt_state)
         static["step"].fill_(step0)
         out: List[np.ndarray] = []
         done = 0
@@ -308,16 +392,24 @@ def make_scanned_epoch(cfg: Config, lr: float, n_steps: int,
     return epoch
 
 
-def make_eval_step(cfg: Config, device: DeviceLike = None) -> Callable:
+def make_eval_step(cfg: Config, device: DeviceLike = None,
+                   mesh=None) -> Callable:
     """eval_step(params, state, batch) -> 0-d loss tensor, in inference mode
     (batch norm on the moving statistics): the kernels' forward on the card
-    (the default ``device``), their plain versions on the CPU."""
-    dev = resolve_device(device)
+    (the default ``device``), their plain versions on the CPU. With
+    ``mesh``, ``batch`` is this rank's rows and the loss is the mean over
+    the ranks."""
+    mesh = check_mesh(mesh)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     loss_fn = make_loss_fn(cfg, training=False)
 
     def eval_step(params, state, batch):
         _check_device(params, dev)
         with torch.no_grad():
-            return loss_fn(params, state, batch)[0]
+            loss = loss_fn(params, state, batch)[0]
+            if mesh is not None:
+                loss = all_reduce_(loss.reshape(1).clone(),
+                                   mesh)[0] / mesh.size
+            return loss
 
     return eval_step
