@@ -60,7 +60,11 @@ wall seconds, each under a watchdog:
      to the eager run; walls, device time and idle share beside the eager
      requests';
   10. spectro: U7 at full width separating 30 s on the card and on the CPU,
-     compared, and through its CUDA graphs (bit for bit);
+     compared, and through its CUDA graphs (bit for bit); one full-width
+     U7 training step (batch 2, dropout masks drawn on the CPU for both)
+     on the card against the CPU: the loss within 1e-5 relative, every
+     gradient against fp64 within 4x the CPU's distance or 2e-3, the moved
+     batch-norm statistics; and a step's ms at the published batch of 4;
   11. stream: full_44KHz streamed in uneven pushes, against the offline
      output on the card, and batched drains against serial ones;
   12. bench: the port's bench (waveunet_tpu_torch/bench.py) at its
@@ -93,21 +97,32 @@ wall seconds, each under a watchdog:
   15. cli: predict and evaluate (random_init=1, max_tracks=1, tpu_bss=1)
      through cli.main, their WAVs and JSON equal byte for byte to the
      library calls';
-  16. dist: data parallelism (waveunet_tpu_torch/parallel/) at full_44KHz
+  16. resample: resample_device on a 60 s stereo song on the card against
+     the host resample (2e-3) for 22050 -> 44100, 44100 -> 22050,
+     48000 -> 44100 and 44100 -> 8192, its ms beside the host's, and its
+     peak device memory on a 4-minute song at 48000 -> 44100;
+  17. dist: data parallelism (waveunet_tpu_torch/parallel/) at full_44KHz
      full width (12 layers, 24 filters, training window 16,384, batch 16,
-     infer_batch 16, seeded weights). (a) A process group of one rank over
-     NCCL, destroyed afterwards: Separator(mesh) on the 30 s request, the
-     mesh train step (loss and every parameter), and the fused epoch over
-     a one-rank ShardedBank with its NCCL all-reduce captured in the CUDA
-     graph against the eager mesh loop, each bit for bit; pod_weighted_mean
-     exact in float64; a step's ms with and without the mesh. (b) Two
-     spawned ranks sharing the card over gloo, 8 rows each of the same
-     global batch: parameters bit-identical across the ranks, the loss
-     within 1e-5 relative and the parameters within rtol 1e-4 / atol 1e-6
-     of the single-process batch-16 step, and Separator(mesh) within 1e-5
-     of one device (the tolerances of tests/test_parallel.py).
+     infer_batch 16, seeded weights) and U7 at full width (batch 4). (a) A
+     process group of one rank over NCCL, destroyed afterwards:
+     Separator(mesh) on the 30 s request, the mesh train step (loss and
+     every parameter), U7's mesh step (loss, parameters and moved
+     statistics), the mesh resident sweep of the 30 s request eager and
+     graphed (the gather captured) with its launch counts, and the fused
+     epoch over a one-rank ShardedBank with its NCCL all-reduce captured in
+     the CUDA graph against the eager mesh loop, each bit for bit against
+     the mesh-free path; pod_weighted_mean exact in float64; a step's ms
+     with and without the mesh. (b) Two spawned ranks sharing the card
+     over gloo, half the rows each of the same global batch: parameters
+     bit-identical across the ranks, the loss within 1e-5 relative and the
+     parameters within rtol 1e-4 / atol 1e-6 of the single-process step,
+     for full_44KHz (batch 16) and U7 (batch 4, its moved statistics too;
+     a conv bias a batch norm follows, whose true gradient is 0, moved by
+     at most the learning rate on both sides), and Separator(mesh) and the
+     mesh resident sweep (eager under gloo) within 1e-5 of one device (the
+     tolerances of tests/test_parallel.py).
 
-Each of the paths of phases 5, 8 to 16 and 13's optimise() is driven with
+Each of the paths of phases 5, 8 to 15, 17 and 13's optimise() is driven with
 the kernels' launch counts set to 0 just before it and read just after (a
 graph replay adds the launches its capture recorded).
 
@@ -135,7 +150,7 @@ LIMITS = {"nvidia-smi": 30, "build": 400, "kernels": 120, "timing": 180,
           "im2col": 240, "serve": 420, "forward": 300, "presets": 240,
           "sweep": 240, "graphs": 240, "spectro": 300, "stream": 240,
           "m6": 120, "bench": 420, "train": 150, "eval": 420, "cli": 180,
-          "dist": 300}
+          "resample": 120, "dist": 300}
 
 # Peaks of one H100 SXM (NVIDIA data sheet) for the bounds: dense TF32 on
 # the tensor cores (the conv kernel computes in 3xTF32: three TF32 products
@@ -915,7 +930,7 @@ def main() -> int:
 
     with phase("spectro"):
         spectro_row = spectro_check(get_config, Separator, kernels, clip, np,
-                                    torch)
+                                    torch, dev)
         path_launches["spectro"] = spectro_row["launches"]
 
     with phase("stream"):
@@ -946,10 +961,14 @@ def main() -> int:
         cli_row = cli_check(get_config, kernels, eval_row, np, torch)
         path_launches["cli"] = cli_row["launches"]
 
+    with phase("resample"):
+        resample_row = resample_check(np, torch, dev)
+
     with phase("dist"):
         dist_row = dist_check(get_config, model, kernels, requests, smi, np,
                               torch, dev)
         path_launches["dist"] = dist_row["launches"]
+        path_launches["dist_sweep"] = dist_row["sweep_launches"]
 
     def entry(name, rows, source, replaces, n_launch, **extra):
         fwd = [r for r in forward_rows if r["kernel"] == name]
@@ -1019,6 +1038,7 @@ def main() -> int:
     print(f"train: {json.dumps(train_row)}", flush=True)
     print(f"eval: {json.dumps(eval_row)}", flush=True)
     print(f"cli: {json.dumps(cli_row)}", flush=True)
+    print(f"resample: {json.dumps(resample_row)}", flush=True)
     print(f"dist: {json.dumps(dist_row)}", flush=True)
     print(f"launches by path: {json.dumps(path_launches)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1449,10 +1469,11 @@ def graphs_check(sep, requests, sr, kernels, np, torch):
     return row
 
 
-def spectro_check(get_config, Separator, kernels, clip, np, torch):
+def spectro_check(get_config, Separator, kernels, clip, np, torch, dev):
     """U7 at full width (6 layers, 16 to 512 channels, 8,192 Hz,
     infer_batch 8) separating a 30 s clip on the card and on the CPU
-    (SPECTRO_ATOL), then through its CUDA graphs (bit for bit)."""
+    (SPECTRO_ATOL), then through its CUDA graphs (bit for bit); then its
+    training step on the card against the CPU (``u7_step_parity``)."""
     from waveunet_tpu_torch.models.spectrogram_unet import (
         init_spectrogram_unet)
 
@@ -1500,6 +1521,133 @@ def spectro_check(get_config, Separator, kernels, clip, np, torch):
         fail("two eager U7 separations of one clip differ")
     if not same:
         fail("U7 through its CUDA graphs differs from the eager run")
+    row["train_step"] = u7_step_parity(get_config, np, torch, dev)
+    return row
+
+
+U7_PARITY_BATCH = 2   # rows of the U7 training step held card vs CPU
+U7_TIMED_STEPS = 3    # U7 steps timed on the card, after one
+# A conv bias that a training batch norm follows has a true gradient of 0
+# (the batch mean takes it out again) and rounding noise on every device,
+# so each U7 gradient's distance from fp64 is scaled by the larger of its
+# own largest fp64 value and U7_GRAD_REF of the largest over all tensors
+# (tests/test_torch_train_step.py holds U7's gradients to JAX's the same
+# way, with the same 1e-2).
+U7_GRAD_REF = 1e-2
+
+
+def u7_inputs(get_config, np, torch, batch_size):
+    """U7 (unet_spectrogram) at full width: seeded params and state on the
+    CPU and a seeded batch of ``batch_size`` 12 s windows at 8,192 Hz."""
+    from waveunet_tpu_torch.models.spectrogram_unet import (
+        init_spectrogram_unet)
+
+    cfg = get_config("unet_spectrogram", batch_size=batch_size)
+    params, state = init_spectrogram_unet(
+        torch.Generator().manual_seed(SEED), cfg, "cpu")
+    rng = np.random.default_rng(SEED + 3)
+    shape = (batch_size, cfg.num_frames, 1)
+    batch = {s: torch.from_numpy((0.2 * rng.standard_normal(shape)).astype(
+        np.float32)) for s in cfg.source_names}
+    batch["mix"] = sum(batch.values())
+    return cfg, params, state, batch
+
+
+def tree_as(tree, device, dtype=None):
+    return {k: {n: t.to(device, dtype or t.dtype) for n, t in v.items()}
+            for k, v in tree.items()}
+
+
+def u7_step_parity(get_config, np, torch, dev):
+    """Phase spectro's training side: one full-width U7 step's loss and
+    gradients (batch U7_PARITY_BATCH, dropout on, the masks drawn on the
+    CPU for every run) on the card, on the CPU in fp32 and in fp64; each
+    gradient's distance from fp64 on the card at most GRAD_FACTOR times the
+    CPU's or GRAD_FLOOR, the relative L2 likewise; the moved statistics
+    card vs CPU; and the ms of a step through make_train_step."""
+    from waveunet_tpu_torch.train import step as step_mod
+
+    cfg, params, state, batch = u7_inputs(get_config, np, torch,
+                                          U7_PARITY_BATCH)
+
+    def run(device, dtype):
+        gen = torch.Generator().manual_seed(SEED)  # CPU: the same masks
+        with step_mod._step_scope(cfg):
+            return step_mod.value_and_grad(
+                step_mod.make_loss_fn(cfg, True), tree_as(params, device,
+                                                          dtype),
+                tree_as(state, device, dtype),
+                {k: v.to(device, dtype) for k, v in batch.items()}, gen)
+
+    t0 = time.perf_counter()
+    l_dev, st_dev, g_dev = run(dev, torch.float32)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    l_cpu, st_cpu, g_cpu = run("cpu", torch.float32)
+    l_64, _, g_64 = run("cpu", torch.float64)
+    top = max(r.abs().max().item() for v in g_64.values() for r in v.values())
+
+    def dist(g):
+        return {f"{k}/{n}": (g[k][n].double().cpu() - r).abs().max().item()
+                / max(r.abs().max().item(), U7_GRAD_REF * top)
+                for k, v in g_64.items() for n, r in v.items()}
+
+    def rel_l2(g):
+        num = sum(((g[k][n].double().cpu() - r) ** 2).sum().item()
+                  for k, v in g_64.items() for n, r in v.items())
+        den = sum((r ** 2).sum().item() for v in g_64.values()
+                  for r in v.values())
+        return (num / den) ** 0.5
+
+    e_dev, e_cpu = dist(g_dev), dist(g_cpu)
+    bad = {k: (e_dev[k], e_cpu[k]) for k in e_dev
+           if not e_dev[k] <= max(GRAD_FACTOR * e_cpu[k], GRAD_FLOOR)}
+    l2_dev, l2_cpu = rel_l2(g_dev), rel_l2(g_cpu)
+    loss_rel = abs(l_dev.item() - l_cpu.item()) / abs(l_cpu.item())
+    stats_err = max((st_dev[k][n].cpu() - st_cpu[k][n]).abs().max().item()
+                    for k in st_cpu for n in st_cpu[k])
+
+    # the step itself, timed: make_train_step on the card, the published
+    # batch of 4, a generator a step as optimise() draws them
+    tcfg, tparams, tstate, tbatch = u7_inputs(get_config, np, torch, 4)
+    init_opt, step = step_mod.make_train_step(tcfg, tcfg.init_sup_sep_lr,
+                                              device=dev)
+    p, st = tree_as(tparams, dev), tree_as(tstate, dev)
+    o = init_opt(p)
+    tbatch = {k: v.to(dev) for k, v in tbatch.items()}
+    ms = []
+    for i in range(U7_TIMED_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, _, loss = step(p, st, o, tbatch,
+                             step_mod.step_generator(tcfg, i, dev))
+        torch.cuda.synchronize()
+        if i:
+            ms.append(1e3 * (time.perf_counter() - t0))
+    worst = max(e_dev, key=lambda k: e_dev[k])
+    row = {"batch": U7_PARITY_BATCH, "loss_card": l_dev.item(),
+           "loss_cpu": l_cpu.item(), "loss_fp64": l_64.item(),
+           "loss_rel_err": loss_rel, "params": len(e_dev),
+           "grad_err_card_max": e_dev[worst], "grad_err_worst": {
+               worst: [e_dev[worst], e_cpu[worst]]},
+           "grad_err_cpu_max": max(e_cpu.values()),
+           "grad_rel_l2": {"card": l2_dev, "cpu": l2_cpu},
+           "moved_stats_max_abs_err": stats_err,
+           "seconds_card_first": t_dev,
+           "step_ms_batch4": float(np.median(ms)), "step_loss": float(loss)}
+    print(f"spectro train step parity (U7 full width): {json.dumps(row)}",
+          flush=True)
+    if not loss_rel <= LOSS_RTOL:
+        fail(f"U7 training loss on the card is {loss_rel:.3e} from the CPU's")
+    if bad:
+        fail(f"U7 gradients on the card off fp64: {bad}")
+    if not l2_dev <= max(GRAD_L2_FACTOR * l2_cpu, GRAD_L2_FLOOR):
+        fail(f"U7 gradient {l2_dev:.3e} from fp64 (relative L2), the CPU's "
+             f"{l2_cpu:.3e}")
+    if not stats_err <= SPECTRO_ATOL:
+        fail(f"U7 moved statistics {stats_err:.3e} from the CPU's")
+    if not np.isfinite(row["step_loss"]):
+        fail("a U7 training step on the card gave a non-finite loss")
     return row
 
 
@@ -2498,6 +2646,65 @@ def cli_check(get_config, kernels, eval_row, np, torch):
 
 # -- phase dist ----------------------------------------------------------------
 
+RESAMPLE_PAIRS = ((22050, 44100), (44100, 22050), (48000, 44100),
+                  (44100, 8192))
+RESAMPLE_SONG_S = 60     # the checked song; the memory probe's is 4 min
+RESAMPLE_ATOL = 2e-3     # fp32 device sums vs the fp64 host
+                         # (tests/test_resample.py:53)
+
+
+def resample_check(np, torch, dev):
+    """Phase resample: resample_device on a 60 s stereo song on the card
+    against the host resample, per rate pair, with each one's ms (CUDA
+    events) beside the host's (host clock); and the peak device memory of
+    a 4-minute stereo song at 48,000 -> 44,100."""
+    from waveunet_tpu_torch.ops.resample import (_resample_plan, resample,
+                                                 resample_device)
+
+    rng = np.random.default_rng(SEED + 4)
+    rows = []
+    for orig, new in RESAMPLE_PAIRS:
+        n = RESAMPLE_SONG_S * orig
+        t = np.arange(n) / orig
+        x = (0.3 * np.sin(2 * np.pi * 440.0 * t)[:, None]
+             + 0.1 * rng.standard_normal((n, 2))).astype(np.float32)
+        t0 = time.perf_counter()
+        want = resample(x, orig, new)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        xd = torch.from_numpy(x).to(dev)
+        got = resample_device(xd, orig, new)
+        torch.cuda.synchronize()
+        err = float(np.abs(got.cpu().numpy() - want).max())
+        p, q = _resample_plan(n, orig, new)[:2]
+        row = {"orig": orig, "new": new, "p": p, "q": q,
+               "frames_in": n, "frames_out": int(got.shape[0]),
+               "shape_ok": tuple(got.shape) == want.shape,
+               "max_abs_err": err, "tol": RESAMPLE_ATOL,
+               "ms": time_cuda(lambda: resample_device(xd, orig, new), torch),
+               "host_ms": host_ms}
+        rows.append(row)
+        print(f"resample {json.dumps(row)}", flush=True)
+        if not (row["shape_ok"] and err <= RESAMPLE_ATOL):
+            fail(f"resample_device {orig} -> {new} on the card disagrees "
+                 f"with the host resample")
+    n = 240 * 48000
+    x = torch.from_numpy((0.1 * rng.standard_normal((n, 2))).astype(
+        np.float32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    y = resample_device(x, 48000, 44100)
+    torch.cuda.synchronize()
+    peak = {"song_s": 240, "orig": 48000, "new": 44100,
+            "input_bytes": x.numel() * 4, "output_bytes": y.numel() * 4,
+            "peak_bytes_above_input": torch.cuda.max_memory_allocated(dev)
+            - base}
+    print(f"resample peak memory: {json.dumps(peak)}", flush=True)
+    if not bool(torch.isfinite(y).all()):
+        fail("resample_device gave non-finite values on a 4-minute song")
+    return {"pairs": rows, "peak_memory": peak}
+
+
 DIST_STEPS = 3          # steps of the fused-against-eager mesh check
 DIST_TIMED_STEPS = 5    # eager steps timed with and without a mesh
 DIST_SONG_S = 8.0       # the one-rank ShardedBank's songs
@@ -2505,6 +2712,7 @@ DIST_JOIN_S = 240       # each gloo rank's whole run
 DIST_LOSS_RTOL = 1e-5   # tests/test_parallel.py:52-56
 DIST_PARAM_RTOL, DIST_PARAM_ATOL = 1e-4, 1e-6
 DIST_SEP_ATOL = 1e-5    # tests/test_parallel.py:87
+DIST_U7_BATCH = 4       # U7's published batch: 2 rows a gloo rank
 
 
 def dist_inputs(get_config, model, torch, np, dev):
@@ -2546,6 +2754,127 @@ def dist_step_ms(cfg, params, batch, mesh, step_mod, torch, dev):
         if i:
             ms.append(1e3 * (time.perf_counter() - t0))
     return float(np.median(ms))
+
+
+def u7_mesh_step(get_config, np, torch, dev, mesh, rows=None):
+    """One U7 training step at full width from the seed, on ``mesh`` (or
+    none), the dropout masks from a generator on ``dev`` seeded SEED; with
+    ``rows`` the step takes those rows of the global batch of
+    DIST_U7_BATCH. Returns (loss, params, moved state, gradients) on the
+    host, the gradients averaged over the ranks as the step averages them
+    before Adam."""
+    from waveunet_tpu_torch.compat.params import params_to_numpy
+    from waveunet_tpu_torch.train import step as step_mod
+
+    cfg, params, state, batch = u7_inputs(get_config, np, torch,
+                                          DIST_U7_BATCH)
+    init_opt, step = step_mod.make_train_step(cfg, cfg.init_sup_sep_lr,
+                                              device=dev, mesh=mesh)
+    p, st = tree_as(params, dev), tree_as(state, dev)
+    batch = {k: v[rows if rows is not None else slice(None)].to(dev)
+             for k, v in batch.items()}
+    with step_mod._step_scope(cfg):
+        gl, _, grads = step_mod.value_and_grad(
+            step_mod.make_loss_fn(cfg, True, mesh=mesh), p, st, batch,
+            torch.Generator(dev).manual_seed(SEED))
+        if mesh is not None:
+            gl, grads = step_mod.mean_over_ranks(mesh, gl, grads)
+    _, _, _, loss = step(p, st, init_opt(p), batch,
+                         torch.Generator(dev).manual_seed(SEED))
+    if float(gl) != float(loss):
+        fail(f"dist: U7's loss {float(loss)} in the step, {float(gl)} "
+             f"beside it")
+    return (float(loss), params_to_numpy(p), params_to_numpy(st),
+            params_to_numpy(grads))
+
+
+def u7_fp64_grads(get_config, np, torch, dev):
+    """The gradients of u7_mesh_step's loss on the whole global batch in
+    fp64 on the CPU, the dropout masks drawn on ``dev`` as there."""
+    from waveunet_tpu_torch.compat.params import params_to_numpy
+    from waveunet_tpu_torch.train import step as step_mod
+
+    cfg, params, state, batch = u7_inputs(get_config, np, torch,
+                                          DIST_U7_BATCH)
+    f64 = torch.float64
+    _, _, grads = step_mod.value_and_grad(
+        step_mod.make_loss_fn(cfg, True), tree_as(params, "cpu", f64),
+        tree_as(state, "cpu", f64), {k: v.double() for k, v in batch.items()},
+        torch.Generator(dev).manual_seed(SEED))
+    return params_to_numpy(grads)
+
+
+# Two fp32 U7 gradients on the card, one process against two ranks: each
+# tensor's distance from fp64 within GRAD_FACTOR of the one process's or
+# this floor. fp32 rounding alone puts some U7 tensors 7.9e-3 of their
+# largest value from fp64 on the card (vocals/down_2/kernel at batch 4,
+# one process and two ranks alike; phase spectro's CPU reached 2.1e-3 at
+# batch 2), above the Wave-U-Net's GRAD_FLOOR; a wrong batch-norm gradient
+# would be off by its own size. The relative L2 of the whole gradient is
+# held as phase train holds it.
+U7_MESH_GRAD_FLOOR = 2e-2
+
+# Adam's first step moves a parameter by lr * g / (|g| + 1e-8): where the
+# gradient is far above eps that is lr * sign(g), steady under rounding;
+# below U7_ADAM_STEADY it follows g's rounding (on the card a U7 gradient
+# is up to 6.5e-4 of its tensor's largest value from fp64, phase spectro),
+# and a conv bias that a training batch norm follows has a true gradient
+# of 0 and only rounding. Such elements may move by up to lr either way.
+U7_ADAM_STEADY = 1e-6
+
+
+def u7_step_close(got, want, g64, init, lr):
+    """(the gradients' distances from fp64 beside ``want``'s, worst
+    parameter or statistic error, within tolerance) of a U7 step against
+    another: each gradient's distance from the fp64 gradients ``g64`` (over
+    the larger of its tensor's largest fp64 value and U7_GRAD_REF of the
+    largest over all tensors) at most GRAD_FACTOR times ``want``'s or
+    U7_MESH_GRAD_FLOOR, and the relative L2 of all of them at most
+    GRAD_L2_FACTOR times ``want``'s or GRAD_L2_FLOOR; the moved
+    statistics and every parameter whose gradient is above U7_ADAM_STEADY
+    within DIST_PARAM_RTOL / DIST_PARAM_ATOL, the others moved by at most
+    lr on both sides. ``got`` and ``want`` are (params, state, grads)."""
+    import numpy as np
+
+    (gp, gs, gg), (wp, ws, wg) = got, want
+    top = max(float(np.abs(v).max()) for t in g64.values()
+              for v in t.values())
+
+    def dist(g, k, n):
+        ref = g64[k][n]
+        return float(np.abs(g[k][n] - ref).max()) / max(
+            float(np.abs(ref).max()), U7_GRAD_REF * top)
+
+    def rel_l2(g):
+        num = sum(float(((g[k][n] - v) ** 2).sum())
+                  for k, t in g64.items() for n, v in t.items())
+        return (num / sum(float((v ** 2).sum()) for t in g64.values()
+                          for v in t.values())) ** 0.5
+
+    pairs = {f"{k}/{n}": (dist(gg, k, n), dist(wg, k, n))
+             for k, t in g64.items() for n in t}
+    off = {key: ab for key, ab in pairs.items()
+           if not ab[0] <= max(GRAD_FACTOR * ab[1], U7_MESH_GRAD_FLOOR)}
+    ranked = sorted(pairs, key=lambda key: -pairs[key][0])
+    l2 = (rel_l2(gg), rel_l2(wg))
+    g_worst = {"worst": {key: pairs[key] for key in ranked[:3]},
+               "off": off, "rel_l2": l2}
+    ok = not off and l2[0] <= max(GRAD_L2_FACTOR * l2[1], GRAD_L2_FLOOR)
+    worst = 0.0
+    for tree_got, tree_want, grads in ((gp, wp, wg), (gs, ws, None)):
+        for k, t in tree_want.items():
+            for n, w in t.items():
+                err = np.abs(tree_got[k][n] - w)
+                close = err <= DIST_PARAM_ATOL + DIST_PARAM_RTOL * np.abs(w)
+                if grads is not None:
+                    loose = np.abs(grads[k][n]) < U7_ADAM_STEADY
+                    moved = np.maximum(np.abs(tree_got[k][n] - init[k][n]),
+                                       np.abs(w - init[k][n]))
+                    close |= loose & (moved <= lr)
+                    err = np.where(loose, 0.0, err)
+                worst = max(worst, float(err.max()))
+                ok &= bool(close.all())
+    return g_worst, worst, ok
 
 
 def dist_rank(rank, port, workdir):
@@ -2593,11 +2922,33 @@ def dist_rank(rank, port, workdir):
             kernels.reset_launches()
             res = sep.separate(audio, cfg.expected_sr)
             torch.cuda.synchronize()
-            counts = kernels.launch_counts()
-            out["launches"] = np.asarray([counts["conv1d_lrelu"],
-                                          counts["learned_interp"],
-                                          counts["conv1d_lrelu_im2col"]])
+
+            def counted():
+                c = kernels.launch_counts()
+                return np.asarray([c["conv1d_lrelu"], c["learned_interp"],
+                                   c["conv1d_lrelu_im2col"]])
+
+            out["launches"] = counted()
             out.update({f"sep/{k}": v for k, v in res.items()})
+            # the mesh resident sweep: gloo runs it eagerly, and says so
+            fn, _ = sep.resident_sweep(audio.shape[0])
+            song = sep.stage_resident(audio)
+            kernels.reset_launches()
+            swept, checksum = fn(sep.params, song)
+            torch.cuda.synchronize()
+            out["sweep_launches"] = counted()
+            out["sweep_checksum"] = np.asarray(float(checksum))
+            out.update({f"sweep/{k}": v.cpu().numpy()
+                        for k, v in swept.items()})
+            # U7: this rank's 2 rows of the global batch of 4
+            per = DIST_U7_BATCH // mesh.size
+            loss, up, ust, ug = u7_mesh_step(
+                get_config, np, torch, dev, mesh,
+                slice(rank * per, (rank + 1) * per))
+            out["u7_loss"] = np.asarray(loss)
+            for prefix, tree in (("u7p", up), ("u7s", ust), ("u7g", ug)):
+                out.update({f"{prefix}/{k}/{n}": v for k, leaves in
+                            tree.items() for n, v in leaves.items()})
             np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
         finally:
             D.shutdown()
@@ -2617,7 +2968,7 @@ def dist_check(get_config, model, kernels, requests, smi, np, torch, dev):
 
     from waveunet_tpu_torch.compat.params import params_to_numpy
     from waveunet_tpu_torch.data.device_cache import ShardedBank
-    from waveunet_tpu_torch.infer.engine import Separator
+    from waveunet_tpu_torch.infer.engine import Separator, window_positions
     from waveunet_tpu_torch.ops import shapes
     from waveunet_tpu_torch.parallel import distributed as D
     from waveunet_tpu_torch.parallel.mesh import make_mesh
@@ -2654,6 +3005,17 @@ def dist_check(get_config, model, kernels, requests, smi, np, torch, dev):
     p_ref = params()
     _, _, _, loss_ref = step(p_ref, {}, init_opt(p_ref), batch)
     loss_ref = float(loss_ref)
+    u7_ref = u7_mesh_step(get_config, np, torch, dev, None)
+    fsep = Separator(cfg, params(), device=dev)
+    song = fsep.stage_resident(audio)
+    sweep_ref = {}  # graphed: mesh-free (outputs, checksum, launches)
+    for graphed in (False, True):
+        fn, _ = fsep.resident_sweep(audio.shape[0], graphed=graphed)
+        kernels.reset_launches()
+        o, ck = fn(fsep.params, song)
+        torch.cuda.synchronize()
+        sweep_ref[graphed] = ({k: v.clone() for k, v in o.items()},
+                              float(ck), kernels.launch_counts())
 
     # (a) a world of one over NCCL, the group destroyed afterwards
     D.initialize(f"localhost:{free_port()}", 1, 0, timeout_s=DIST_JOIN_S)
@@ -2712,6 +3074,39 @@ def dist_check(get_config, model, kernels, requests, smi, np, torch, dev):
             "launches": kernels.launch_counts(), "differ": differ[:5],
             "bit_for_bit": not differ and el == fl}
 
+        # U7's mesh step (batch norm over the ranks, global masks)
+        u7_one = u7_mesh_step(get_config, np, torch, dev, mesh)
+        loss_u7 = u7_one[0]
+        a["u7_step"] = {
+            "loss": loss_u7, "loss_mesh_free": u7_ref[0],
+            "params_differ": [f"{k}/{n}" for t, r in zip(u7_one[1:],
+                                                         u7_ref[1:])
+                              for k in r for n in r[k]
+                              if not np.array_equal(t[k][n], r[k][n])][:5]}
+        a["u7_step"]["bit_for_bit"] = (loss_u7 == u7_ref[0]
+                                       and not a["u7_step"]["params_differ"])
+
+        # the mesh resident sweep, eager and graphed (the gather captured)
+        msep = Separator(cfg, params(), mesh=mesh)
+        msong = msep.stage_resident(audio)
+        a["resident_sweep"] = {}
+        for graphed in (False, True):
+            fn, _ = msep.resident_sweep(audio.shape[0], graphed=graphed)
+            kernels.reset_launches()
+            o, ck = fn(msep.params, msong)
+            torch.cuda.synchronize()
+            want_o, want_ck, want_l = sweep_ref[graphed]
+            got_l = kernels.launch_counts()
+            held = getattr(fn, "held", {}).get("graph")
+            a["resident_sweep"]["graphed" if graphed else "eager"] = {
+                "chunks": msep.resident_chunk_sizes(
+                    len(window_positions(audio.shape[0], msep.out_len))),
+                "launches": got_l, "launches_mesh_free": want_l,
+                "graph_replays": held.replays if held is not None else 0,
+                "bit_for_bit": (all(torch.equal(o[k], want_o[k])
+                                    for k in want_o) and ck == want_ck
+                                and got_l == want_l)}
+
         x = 1.0 + 2.0 ** -30  # float32 rounds it to 1.0
         got_mean = D.pod_weighted_mean(x, 1)
         a["pod_weighted_mean"] = {"value": repr(got_mean),
@@ -2736,6 +3131,19 @@ def dist_check(get_config, model, kernels, requests, smi, np, torch, dev):
              f"from the eager mesh loop: {a['fused_epoch']}")
     if not a["pod_weighted_mean"]["f64_exact"]:
         fail("dist: pod_weighted_mean is not exact in float64")
+    if not a["u7_step"]["bit_for_bit"]:
+        fail(f"dist: U7's mesh step differs from its mesh-free step: "
+             f"{a['u7_step']}")
+    for mode, r in a["resident_sweep"].items():
+        if not r["bit_for_bit"]:
+            fail(f"dist: the {mode} mesh resident sweep differs from the "
+                 f"mesh-free one: {r}")
+        if not (r["launches"]["conv1d_lrelu"] > 0
+                and r["launches"]["learned_interp"] > 0):
+            fail(f"dist: the {mode} mesh resident sweep launched no conv or "
+                 f"interp kernel")
+    if not a["resident_sweep"]["graphed"]["graph_replays"]:
+        fail("dist: the graphed mesh resident sweep was not replayed")
     sep_l = a["separator"]["launches"]
     if not (sep_l["conv1d_lrelu"] > 0 and sep_l["learned_interp"] > 0):
         fail("dist: the mesh Separator launched no conv or interp kernel")
@@ -2782,6 +3190,35 @@ def dist_check(get_config, model, kernels, requests, smi, np, torch, dev):
                       for r in ranks for k in one)
         sep_same = all(np.array_equal(ranks[0][f"sep/{k}"],
                                       ranks[1][f"sep/{k}"]) for k in one)
+        swept_ref = {k: v.cpu().numpy()
+                     for k, v in sweep_ref[False][0].items()}
+        sweep_err = max(float(np.abs(r[f"sweep/{k}"] - v).max())
+                        for r in ranks for k, v in swept_ref.items())
+        sweep_same = all(np.array_equal(ranks[0][f"sweep/{k}"],
+                                        ranks[1][f"sweep/{k}"])
+                         for k in swept_ref)
+
+        def u7_tree(r, prefix):
+            tree = {}
+            for key in r.files:
+                if key.startswith(prefix + "/"):
+                    layer, n = key[len(prefix) + 1:].rsplit("/", 1)
+                    tree.setdefault(layer, {})[n] = r[key]
+            return tree
+
+        u7_init = u7_inputs(get_config, np, torch, DIST_U7_BATCH)
+        u7_init = {k: {n: t.numpy() for n, t in v.items()}
+                   for k, v in u7_init[1].items()}
+        u7_grad, u7_worst, u7_ok = u7_step_close(
+            tuple(u7_tree(ranks[0], x) for x in ("u7p", "u7s", "u7g")),
+            u7_ref[1:], u7_fp64_grads(get_config, np, torch, dev), u7_init,
+            cfg.init_sup_sep_lr)
+        u7_identical = all(np.array_equal(ranks[0][k], ranks[1][k])
+                           for k in ranks[0].files
+                           if k.startswith(("u7p/", "u7s/", "u7g/",
+                                            "u7_loss")))
+        u7_loss_rel = (abs(float(ranks[0]["u7_loss"]) - u7_ref[0])
+                       / abs(u7_ref[0]))
         b = {"wall_s": wall, "ranks": [r["mesh"].tolist() for r in ranks],
              "loss": [float(r["loss"]) for r in ranks],
              "loss_single_process": loss_ref, "loss_rel_err": loss_rel,
@@ -2791,7 +3228,22 @@ def dist_check(get_config, model, kernels, requests, smi, np, torch, dev):
              "separator_ranks_equal": sep_same,
              "launches": [dict(zip(("conv1d_lrelu", "learned_interp",
                                     "conv1d_lrelu_im2col"),
-                                   r["launches"].tolist())) for r in ranks]}
+                                   r["launches"].tolist())) for r in ranks],
+             "resident_sweep": {
+                 "max_abs_err_vs_one_device": sweep_err,
+                 "ranks_equal": sweep_same,
+                 "checksums": [float(r["sweep_checksum"]) for r in ranks],
+                 "launches": [dict(zip(("conv1d_lrelu", "learned_interp",
+                                        "conv1d_lrelu_im2col"),
+                                       r["sweep_launches"].tolist()))
+                              for r in ranks]},
+             "u7_step": {"loss": [float(r["u7_loss"]) for r in ranks],
+                         "loss_single_process": u7_ref[0],
+                         "loss_rel_err": u7_loss_rel,
+                         "grads_vs_fp64_and_one_process": u7_grad,
+                         "params_state_max_abs_err": u7_worst,
+                         "within_tol": u7_ok,
+                         "ranks_bit_identical": u7_identical}}
     finally:
         shutil.rmtree(work, ignore_errors=True)
     row["gloo_two_ranks"] = b
@@ -2806,12 +3258,27 @@ def dist_check(get_config, model, kernels, requests, smi, np, torch, dev):
     if not (sep_err <= DIST_SEP_ATOL and sep_same):
         fail(f"dist (b): Separator(mesh) {sep_err:.3e} from one device")
     if not all(x["conv1d_lrelu"] > 0 and x["learned_interp"] > 0
-               for x in b["launches"]):
+               for x in b["launches"] + b["resident_sweep"]["launches"]):
         fail("dist (b): a rank launched no conv or interp kernel")
+    if not (sweep_err <= DIST_SEP_ATOL and sweep_same):
+        fail(f"dist (b): the mesh resident sweep {sweep_err:.3e} from one "
+             f"device")
+    if not u7_identical:
+        fail("dist (b): the ranks' U7 parameters differ after the step")
+    if not u7_loss_rel <= DIST_LOSS_RTOL:
+        fail(f"dist (b): U7 loss {u7_loss_rel:.3e} from the single process")
+    if not u7_ok:
+        fail(f"dist (b): U7 gradients (against fp64, beside one "
+             f"process's: {u7_grad}) or parameters or statistics "
+             f"({u7_worst:.3e}) off the single process")
     row["launches"] = {k: a["separator"]["launches"][k]
                        + a["train_step"]["launches"][k]
                        + a["fused_epoch"]["launches"][k]
                        for k in a["separator"]["launches"]}
+    # the mesh resident sweep's own path (part a, eager then graphed)
+    row["sweep_launches"] = {
+        k: sum(r["launches"][k] for r in a["resident_sweep"].values())
+        for k in a["separator"]["launches"]}
     return row
 
 

@@ -72,7 +72,10 @@ def test_package_imports_without_jax():
             "waveunet_tpu_torch.eval.harness, waveunet_tpu_torch.eval.plot, "
             "waveunet_tpu_torch.parallel.mesh, "
             "waveunet_tpu_torch.parallel.distributed, "
-            "waveunet_tpu_torch.parallel.dryrun\n"
+            "waveunet_tpu_torch.parallel.dryrun, waveunet_tpu_torch.utils, "
+            "waveunet_tpu_torch.data.mp3, waveunet_tpu_torch.ops.resample, "
+            "waveunet_tpu_torch.tools.synth, "
+            "waveunet_tpu_torch.tools.quality\n"
             "assert w.optimise is waveunet_tpu_torch.train.loop.optimise\n"
             "assert w.Separator is waveunet_tpu_torch.infer.engine.Separator\n"
             "assert not any(m.startswith(('jax', 'triton', 'matplotlib')) "
@@ -117,7 +120,8 @@ def test_build_without_nvcc_raises(monkeypatch):
                                    "bss_eval_framewise_tpu",
                                    "bss_eval_framewise_tpu64",
                                    "draw_spectrogram", "make_mesh",
-                                   "initialize"])
+                                   "initialize", "resample_device",
+                                   "spectrogramToAudioFile"])
 def test_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
     """No device argument means the card; without one they raise and do not
     fall back to the CPU."""
@@ -128,8 +132,10 @@ def test_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
         bss_eval_framewise_tpu64)
     from waveunet_tpu_torch.eval.harness import evaluate_musdb
     from waveunet_tpu_torch.eval.plot import draw_spectrogram
+    from waveunet_tpu_torch.ops.resample import resample_device
     from waveunet_tpu_torch.ops.stft import griffin_lim
     from waveunet_tpu_torch.parallel.distributed import initialize
+    from waveunet_tpu_torch.utils import spectrogramToAudioFile
     from waveunet_tpu_torch.parallel.mesh import make_mesh
     from waveunet_tpu_torch.train.step import (make_eval_step,
                                                make_scanned_epoch,
@@ -174,6 +180,11 @@ def test_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
         "draw_spectrogram": lambda: draw_spectrogram(wav),
         "make_mesh": lambda: make_mesh(),
         "initialize": lambda: initialize("127.0.0.1:1", 2, 0),
+        "resample_device": lambda: resample_device(
+            np.zeros((100, 2), np.float32), 44100, 22050),
+        "spectrogramToAudioFile": lambda: spectrogramToAudioFile(
+            np.ones((4, 513), np.float32), phaseIterations=0,
+            phase=np.zeros((4, 513), np.float32)),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -9,8 +9,10 @@ process; here the processes are joined over gloo on the CPU:
   * two spawned ranks (one module fixture; ``torch_parallel_ranks.py``
     runs every check in each and writes its results): the data-parallel
     step against JAX's single-device step and JAX's step on a 2-device
-    mesh, the ranks bit-identical, the window-parallel ``Separator``
-    against JAX's, the mesh-sharded bank, and the sharded BSS-Eval;
+    mesh, the ranks bit-identical, U7's data-parallel step (batch norm
+    over the ranks) against JAX's 2-device step and against one process,
+    the window-parallel ``Separator`` and ``resident_sweep`` against
+    JAX's, the mesh-sharded bank, and the sharded BSS-Eval;
   * the ``train`` and ``evaluate`` commands as two pod processes each;
   * ``dryrun_multichip(2)``.
 
@@ -36,16 +38,19 @@ import torch.distributed as dist
 
 from waveunet_tpu.config import get_config as jax_get_config
 from waveunet_tpu.infer.engine import Separator as JaxSeparator
+from waveunet_tpu.models import spectrogram_unet as jax_su
 from waveunet_tpu.models.waveunet import init_waveunet as jax_init
 from waveunet_tpu.ops import shapes as jax_shapes
 from waveunet_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from waveunet_tpu.train.step import make_train_step as jax_make_train_step
-from waveunet_tpu_torch.compat.params import params_from_numpy
+from waveunet_tpu_torch.compat.params import (params_from_numpy,
+                                              params_to_numpy)
 from waveunet_tpu_torch.config import get_config
 from waveunet_tpu_torch.data.audio_io import write_wav
 from waveunet_tpu_torch.eval.bsseval_tpu import bss_eval_framewise_tpu
 from waveunet_tpu_torch.eval.harness import evaluate_musdb
 from waveunet_tpu_torch.infer.engine import Separator
+from waveunet_tpu_torch.infer.wire import quantize_int16
 from waveunet_tpu_torch.models.waveunet import init_waveunet
 from waveunet_tpu_torch.ops import shapes
 from waveunet_tpu_torch.parallel import distributed as D
@@ -58,8 +63,9 @@ from waveunet_tpu_torch.train.step import (make_eval_step,
                                            make_train_step)
 from test_torch_train_loop import make_cache
 from torch_cpu import few_threads  # noqa: F401
-from torch_parallel_ranks import (eval_config, eval_params, flatten,
-                                  run_rank, unflatten)
+from torch_parallel_ranks import (SWEEP, U7_LR, U7_SEED, U7_SMALL,
+                                  eval_config,
+                                  eval_params, flatten, run_rank, unflatten)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JOIN_S = 120      # a spawned rank's whole run
@@ -67,6 +73,7 @@ CLI_S = 180       # a pod CLI process's whole run
 LOSS_RTOL = 1e-5  # tests/test_parallel.py:52-56
 PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-6
 SEP_ATOL = 1e-5   # tests/test_parallel.py:87
+SWEEP_ATOL = 2e-5  # the port's sweep against JAX's (test_torch_sweep.py)
 
 
 def np_tree(tree):
@@ -98,6 +105,84 @@ def sep_inputs():
     audio = (0.1 * np.random.default_rng(7).standard_normal(
         (out_len * 7 + 13, 1))).astype(np.float32)
     return cfg, params, audio
+
+
+def u7_inputs():
+    """The spectrogram U-Net at U7_SMALL, params and state from the JAX
+    init moved off their zeros (so batch norm has statistics to move), and
+    a seeded global batch of 4."""
+    jcfg = jax_get_config("unet_spectrogram", **U7_SMALL)
+    p, st = jax_su.init_spectrogram_unet(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.default_rng(0)
+    p = jax.tree_util.tree_map(lambda a: np.asarray(a) + 0.05 * rng.normal(
+        size=a.shape).astype(np.float32), p)
+    st = jax.tree_util.tree_map(lambda a: np.abs(
+        np.asarray(a) + 0.1 * rng.normal(size=a.shape).astype(np.float32)),
+        st)
+    shape = (jcfg.batch_size, jcfg.num_frames, 1)
+    batch = {k: (0.2 * rng.standard_normal(shape)).astype(np.float32)
+             for k in ("mix",) + tuple(jcfg.source_names)}
+    return jcfg, p, st, batch
+
+
+def jax_u7_mesh_step(jcfg, p, st, batch):
+    """JAX's U7 step on a 2-device mesh with dropout keeping every value
+    (its masks cannot be drawn in PyTorch): (loss, params, state)."""
+    mesh2 = jax_make_mesh(devices=jax.devices()[:2])
+    init_opt, step = jax_make_train_step(jcfg, U7_LR, mesh=mesh2)
+    jp = jax.tree_util.tree_map(jnp.asarray, p)
+    with pytest.MonkeyPatch.context() as mp_:
+        mp_.setattr(jax.random, "bernoulli",
+                    lambda key, p, shape: jnp.ones(shape, bool))
+        p2, st2, _, loss = step(jp, jax.tree_util.tree_map(jnp.asarray, st),
+                                init_opt(jp),
+                                {k: jnp.asarray(v) for k, v in batch.items()},
+                                jax.random.PRNGKey(0))
+    return float(loss), np_tree(p2), np_tree(st2)
+
+
+def port_u7_step(p, st, batch):
+    """The port's U7 step in one process on the whole global batch, dropout
+    on: (loss, params, state)."""
+    init_opt, step = make_train_step(get_config("unet_spectrogram",
+                                                **U7_SMALL), U7_LR,
+                                     device="cpu")
+    tp = params_from_numpy(p, "cpu")
+    tp, tst, _, loss = step(tp, params_from_numpy(st, "cpu"), init_opt(tp),
+                            {k: torch.from_numpy(v) for k, v in batch.items()},
+                            torch.Generator().manual_seed(U7_SEED))
+    return float(loss), params_to_numpy(tp), params_to_numpy(tst)
+
+
+def is_bias_before_batch_norm(layer, leaf):
+    """A conv bias that a training batch norm follows (every U7 conv but
+    the mask's)."""
+    return leaf == "bias" and not layer.endswith("/mask")
+
+
+def sweep_song(out_len, n_win=13):
+    """A song of ``n_win`` windows, the last right-aligned."""
+    n = out_len * (n_win - 1) + 31
+    return (0.1 * np.random.default_rng(5).standard_normal((n, 1))).astype(
+        np.float32)
+
+
+def jax_mesh_sweeps(params, audio):
+    """JAX's resident sweep on a 2-device mesh, per wire."""
+    mesh2 = jax_make_mesh(devices=jax.devices()[:2])
+    out = {}
+    for wire in ("float32", "int16"):
+        jsep = JaxSeparator(jax_get_config("baseline", infer_wire_dtype=wire,
+                                           **SWEEP),
+                            jax.tree_util.tree_map(jnp.asarray, params),
+                            mesh=mesh2)
+        padded = np.pad(audio, [(jsep.pad, jsep.pad), (0, 0)])
+        if wire == "int16":
+            padded = quantize_int16(padded)
+        fn, _ = jsep.resident_sweep(audio.shape[0])
+        got, _ = fn(jsep.params, jnp.asarray(padded))
+        out[wire] = {k: np.asarray(v) for k, v in got.items()}
+    return out
 
 
 def bss_inputs():
@@ -247,10 +332,19 @@ def test_world_of_one_separator_is_the_single_device_engine(group1, wire):
     got = sep.separate(audio, cfg.expected_sr)
     for s in cfg.source_names:
         np.testing.assert_array_equal(got[s], one[s])
-    with pytest.raises(ValueError, match="single-card"):
-        sep.resident_sweep(out_len * 3)
-    # one rank keeps the single-device schedule; several share full tails
+    # the resident sweep too, with the single-device chunk schedule
+    song = np.tile(audio, (-(-(sep.out_len * 4 + 7) // len(audio)), 1))
+    song = song[:sep.out_len * 4 + 7]
     single = Separator(cfg, params, device="cpu")
+    sweeps = []
+    for engine in (single, sep):
+        fn, positions = engine.resident_sweep(len(song))
+        sweeps.append(fn(engine.params, engine.stage_resident(song)))
+        assert engine.resident_chunk_sizes(len(positions)) == [2, 2, 1]
+    for s in cfg.source_names:
+        assert torch.equal(sweeps[0][0][s], sweeps[1][0][s])
+    assert torch.equal(sweeps[0][1], sweeps[1][1])
+    # one rank keeps the single-device schedule; several share full tails
     assert [sep._chunk_sizes(n) for n in (1, 5, 11)] == [
         single._chunk_sizes(n) for n in (1, 5, 11)]
     two = Separator(cfg, params, mesh=Mesh((2,), ("data",),
@@ -303,11 +397,45 @@ def test_a_mesh_that_is_not_a_port_mesh_raises_type_error(caller, bad,
         _mesh_callers(tmp_path)[caller](mesh)
 
 
-def test_u7_trains_on_a_mesh_of_one_rank_only():
-    cfg = get_config("unet_spectrogram", num_layers=2)
-    big = Mesh((2,), ("data",), torch.device("cpu"), 0)
-    with pytest.raises(ValueError, match="batch norm"):
-        make_train_step(cfg, 1e-3, mesh=big)
+def test_world_of_one_u7_step_is_the_mesh_free_step(group1):
+    """Dropout on, the same generator: a one-rank mesh takes the mesh-free
+    batch norm and masks, bit for bit."""
+    _, p, st, batch = u7_inputs()
+    runs = []
+    for mesh in (None, group1):
+        init_opt, step = make_train_step(
+            get_config("unet_spectrogram", **U7_SMALL), 1e-3, device="cpu",
+            mesh=mesh)
+        tp, tst = params_from_numpy(p, "cpu"), params_from_numpy(st, "cpu")
+        tp, tst, _, loss = step(tp, tst, init_opt(tp),
+                                {k: torch.from_numpy(v)
+                                 for k, v in batch.items()},
+                                torch.Generator().manual_seed(U7_SEED))
+        runs.append((loss, params_to_numpy(tp), params_to_numpy(tst)))
+    (l1, p1, s1), (l2, p2, s2) = runs
+    assert torch.equal(l1, l2)
+    for a, b in ((p1, p2), (s1, s2)):
+        for k in a:
+            for n in a[k]:
+                np.testing.assert_array_equal(a[k][n], b[k][n], err_msg=k)
+
+
+def test_u7_trains_on_a_two_rank_mesh(two_ranks):
+    """Two ranks step U7 together: the same loss, parameters and moved
+    statistics on both, the statistics moved from their start."""
+    a, b = two_ranks["ranks"]
+    _, _, st, _ = two_ranks["u7"]
+    for name in ("u7_keep", "u7_drop"):
+        assert np.isfinite(a[f"{name}_loss"])
+        assert a[f"{name}_loss"] == b[f"{name}_loss"]
+        keys = [k for k in a if k.startswith((f"{name}_params/",
+                                              f"{name}_state/"))]
+        assert keys
+        for k in keys:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        moved = unflatten(a, f"{name}_state")
+        assert all(not np.array_equal(moved[k][s], st[k][s])
+                   for k in st for s in st[k])
 
 
 # -- two spawned ranks -------------------------------------------------------
@@ -343,11 +471,19 @@ def two_ranks(tmp_path_factory):
     tcfg, tparams, batch = train_inputs()
     scfg, sparams, audio = sep_inputs()
     refs, ests = bss_inputs()
+    u7 = u7_inputs()
+    wcfg = jax_get_config("baseline", **SWEEP)
+    wparams = np_tree(jax_init(jax.random.PRNGKey(3), wcfg))
+    waudio = sweep_song(jax_shapes.get_padding(wcfg, wcfg.num_frames)[1])
     _make_db(work, noise=True)
     np.savez(work / "inputs.npz", audio=audio, bss_refs=refs, bss_ests=ests,
+             sweep_audio=waudio,
              **{f"batch/{k}": v for k, v in batch.items()},
+             **{f"u7batch/{k}": v for k, v in u7[3].items()},
              **flatten("train_params", tparams),
-             **flatten("sep_params", sparams))
+             **flatten("sep_params", sparams),
+             **flatten("u7_params", u7[1]), **flatten("u7_state", u7[2]),
+             **flatten("sweep_params", wparams))
     procs = start_ranks(run_rank, 2, work)  # the JAX references meanwhile
 
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -363,16 +499,22 @@ def two_ranks(tmp_path_factory):
     single = JaxSeparator(scfg, jax.tree_util.tree_map(jnp.asarray,
                                                        sparams)).separate(
         audio, scfg.expected_sr)
+    u7_keep = jax_u7_mesh_step(*u7)
+    u7_drop = port_u7_step(*u7[1:])
+    sweeps = jax_mesh_sweeps(wparams, waudio)
     ecfg = eval_config(str(work / "db"))
     one_eval = evaluate_musdb(ecfg, eval_params(ecfg), tpu_bss=True,
                               output_path=str(work / "one_eval"),
                               device="cpu")
     join_ranks(procs)
     ranks = [dict(np.load(work / f"rank{r}.npz")) for r in range(2)]
-    return {"work": work, "one_eval": np.asarray(one_eval, np.float64),"ranks": ranks, "cfg": tcfg, "sep_cfg": scfg,
+    return {"work": work, "one_eval": np.asarray(one_eval, np.float64),
+            "ranks": ranks, "cfg": tcfg, "sep_cfg": scfg,
             "jax_steps": {"single": (float(l1), np_tree(p1)),
                           "mesh2": (float(l2), np_tree(p2))},
-            "jax_sep": single}
+            "jax_sep": single, "u7": u7,
+            "u7_refs": {"u7_keep": u7_keep, "u7_drop": u7_drop},
+            "jax_sweeps": sweeps}
 
 
 def test_two_ranks_form_one_mesh(two_ranks):
@@ -395,6 +537,54 @@ def test_dp_step_matches_jax(two_ranks, ref):
             np.testing.assert_allclose(got[k][n], params[k][n],
                                        rtol=PARAM_RTOL, atol=PARAM_ATOL,
                                        err_msg=f"{k}/{n}")
+
+
+@pytest.mark.parametrize("name", ["u7_keep", "u7_drop"])
+def test_u7_dp_step_matches_one_process(two_ranks, name):
+    """Two ranks of U7, 2 rows each of the global batch of 4: with dropout
+    keeping every value against JAX's step on a 2-device mesh
+    (``u7_keep``), with dropout on against the port's step in one process
+    on the whole batch with the same generator (``u7_drop``). Loss,
+    parameters and moved statistics at tests/test_parallel.py's
+    tolerances."""
+    loss, params, state = two_ranks["u7_refs"][name]
+    _, init, _, _ = two_ranks["u7"]
+    r0 = two_ranks["ranks"][0]
+    np.testing.assert_allclose(float(r0[f"{name}_loss"]), loss,
+                               rtol=LOSS_RTOL)
+    for prefix, want in (("params", params), ("state", state)):
+        got = unflatten(r0, f"{name}_{prefix}")
+        assert sorted(got) == sorted(want)
+        for k in want:
+            for n in want[k]:
+                if prefix == "params" and is_bias_before_batch_norm(k, n):
+                    # its true gradient is 0 (the batch mean takes the bias
+                    # out again) and each side's is rounding noise, which
+                    # Adam's first step scales up to as much as lr: both
+                    # moved by at most lr, not in the same direction
+                    for side in (got, want):
+                        assert np.abs(side[k][n] - init[k][n]).max() <= U7_LR
+                    continue
+                np.testing.assert_allclose(got[k][n], want[k][n],
+                                           rtol=PARAM_RTOL, atol=PARAM_ATOL,
+                                           err_msg=f"{prefix} {k}/{n}")
+
+
+@pytest.mark.parametrize("wire", ["float32", "int16"])
+def test_mesh_resident_sweep_matches_jax(two_ranks, wire):
+    """Two ranks' resident sweep (chunks of 8 windows, 4 a rank, gathered
+    before the device stitch) against JAX's on a 2-device mesh; under gloo
+    the graphed sweep runs eagerly and says so."""
+    a, b = two_ranks["ranks"]
+    want = two_ranks["jax_sweeps"][wire]
+    assert a[f"sweep_{wire}_sizes"].tolist() == [8, 8]
+    assert "eager" in str(a[f"sweep_{wire}_said"])
+    for s, v in want.items():
+        np.testing.assert_allclose(a[f"sweep_{wire}/{s}"], v,
+                                   atol=SWEEP_ATOL, err_msg=s)
+        np.testing.assert_array_equal(a[f"sweep_{wire}/{s}"],
+                                      b[f"sweep_{wire}/{s}"])
+    assert a[f"sweep_{wire}_checksum"] == b[f"sweep_{wire}_checksum"]
 
 
 def test_ranks_hold_bit_identical_params(two_ranks):

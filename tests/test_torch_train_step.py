@@ -422,7 +422,7 @@ def test_u7a_l1_loss_and_grads_match_jax_with_dropout_keeping_all(
                  cfg.replace(raw_audio_loss=False))
     monkeypatch.setattr(jax.random, "bernoulli",
                         lambda key, p, shape: jnp.ones(shape, bool))
-    monkeypatch.setattr(su, "dropout", lambda x, gen: x / 0.5)
+    monkeypatch.setattr(su, "dropout", lambda x, gen, mesh=None: x / 0.5)
     rng = np.random.default_rng(5)
     batch = {s: (0.2 * rng.standard_normal(mix.shape)).astype(np.float32)
              for s in cfg.source_names}

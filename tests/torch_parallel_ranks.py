@@ -7,6 +7,8 @@ write. This module imports the port and numpy only, so a rank starts
 without JAX.
 """
 
+import contextlib
+import io
 import os
 import sys
 import traceback
@@ -26,7 +28,8 @@ def unflatten(arrays, prefix):
     tree = {}
     for key in arrays:
         if key.startswith(prefix + "/"):
-            _, layer, name = key.split("/")
+            # a layer name may hold a "/" (the spectrogram U-Net's)
+            layer, name = key[len(prefix) + 1:].rsplit("/", 1)
             tree.setdefault(layer, {})[name] = arrays[key]
     return tree
 
@@ -170,6 +173,48 @@ def _checks(rank, n, workdir):
         1.0 if rank == 0 else 2.0 ** -30, 1))
     out["wmean_none"] = np.asarray(D.pod_weighted_mean(0.0, 0))
 
+    # the spectrogram U-Net's data-parallel step: batch-norm statistics and
+    # dropout masks over the global batch of 4, 2 rows a rank
+    from waveunet_tpu_torch.models import spectrogram_unet as su
+
+    ucfg = u7_config()
+    ubatch = put_batch_sharded({k[len("u7batch/"):]: inp[k]
+                                for k in inp.files
+                                if k.startswith("u7batch/")}, mesh)
+    keep_all = su.dropout
+    for name, drop in (("u7_keep", lambda x, gen, mesh=None: x / 0.5),
+                       ("u7_drop", keep_all)):
+        su.dropout = drop
+        try:
+            p = params_from_numpy(unflatten(inp, "u7_params"), "cpu")
+            st = params_from_numpy(unflatten(inp, "u7_state"), "cpu")
+            init_opt, ustep = make_train_step(ucfg, U7_LR, mesh=mesh)
+            p, st, _, loss = ustep(p, st, init_opt(p), ubatch,
+                                   torch.Generator().manual_seed(U7_SEED))
+        finally:
+            su.dropout = keep_all
+        out[f"{name}_loss"] = np.asarray(float(loss))
+        out.update(flatten(f"{name}_params", params_to_numpy(p)))
+        out.update(flatten(f"{name}_state", params_to_numpy(st)))
+
+    # the resident sweep on the mesh, both wires: chunks of 8 windows, 4 a
+    # rank, gathered before the device stitch
+    for wire in ("float32", "int16"):
+        wcfg = get_config("baseline", infer_wire_dtype=wire, **SWEEP)
+        wsep = Separator(wcfg, params_from_numpy(
+            unflatten(inp, "sweep_params"), "cpu"), mesh=mesh)
+        audio = inp["sweep_audio"]
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):  # gloo: eager, and says so
+            fn, positions = wsep.resident_sweep(audio.shape[0], graphed=True)
+        got, checksum = fn(wsep.params, wsep.stage_resident(audio))
+        for name, v in got.items():
+            out[f"sweep_{wire}/{name}"] = v.numpy()
+        out[f"sweep_{wire}_checksum"] = np.asarray(float(checksum))
+        out[f"sweep_{wire}_sizes"] = np.asarray(
+            wsep.resident_chunk_sizes(len(positions)))
+        out[f"sweep_{wire}_said"] = np.asarray(said.getvalue())
+
     # window-parallel fp32 BSS-Eval against the same call without a mesh
     refs, ests = inp["bss_refs"], inp["bss_ests"]
     kw = dict(rate=256, filter_len=16, window_batch=2)
@@ -187,6 +232,22 @@ def _checks(rank, n, workdir):
         output_path=os.path.join(workdir, "mesh_eval"))
     out["eval_stats"] = np.asarray(stats, np.float64)
     np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+
+
+# the spectrogram U-Net of the two-rank step (test_torch_train_step.py's
+# U7_SMALL at a global batch of 4) and its dropout generator's seed
+U7_SMALL = dict(num_layers=3, num_frames=768 * 7 + 1024,
+                num_initial_filters=4, batch_size=4)
+U7_SEED = 7
+U7_LR = 1e-4
+# the JAX package's sweep tests' engine (tests/test_infer.py:322)
+SWEEP = dict(num_layers=3, num_frames=256, infer_batch=4,
+             infer_num_frames=None, output_type="difference")
+
+
+def u7_config():
+    from waveunet_tpu_torch.config import get_config
+    return get_config("unet_spectrogram", **U7_SMALL)
 
 
 def eval_config(db):

@@ -18,9 +18,15 @@ Evaluation: ``evaluate_musdb`` (``eval/``: the host fp64 BSS-Eval scorer,
 the fp32 and fp64 device scorers). The command line: ``python -m
 waveunet_tpu_torch <command>`` (``cli.py``). Several cards: one process a
 card joined by ``torch.distributed`` (``parallel/``), with ``make_mesh``
-over the ranks for data-parallel training (``optimise``, the sharded bank
-``ShardedBank``), window-parallel ``Separator`` and ``evaluate_musdb``,
-and ``dryrun_multichip``, the multi-process dry run on the CPU.
+over the ranks for data-parallel training of both model families
+(``optimise``, the sharded bank ``ShardedBank``; U7's batch norm takes its
+statistics over every rank's rows), window-parallel ``Separator``,
+``resident_sweep`` and ``evaluate_musdb``, and ``dryrun_multichip``, the
+multi-process dry run on the CPU. Also: ``resample_device`` (the polyphase
+resampler on the card), MPEG audio through ``data.audio_io.load``
+(libmpg123), the reference's ``Utils`` names in
+``waveunet_tpu_torch.utils``, and the trained-quality tool ``python -m
+waveunet_tpu_torch.tools.quality``.
 
 Importing the package loads only the configuration; the models, the engine
 and the kernels load on first use.
@@ -51,6 +57,7 @@ _LAZY = {
     "Mesh": "waveunet_tpu_torch.parallel.mesh",
     "make_mesh": "waveunet_tpu_torch.parallel.mesh",
     "dryrun_multichip": "waveunet_tpu_torch.parallel.dryrun",
+    "resample_device": "waveunet_tpu_torch.ops.resample",
 }
 
 __all__ = ["Config", "get_config", "preset_names", *_LAZY, "__version__"]

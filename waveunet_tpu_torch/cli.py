@@ -34,8 +34,10 @@ Several cards run one process a card. ``train``, ``evaluate`` and
 or read ``torchrun``'s environment (``torchrun --nproc-per-node=4 -m
 waveunet_tpu_torch train full_44KHz ...``). Each rank takes the card
 ``LOCAL_RANK``, else ``process_id`` modulo the host's cards; NCCL on the
-cards, gloo with ``platform=cpu``. ``train`` trains data-parallel
-(process 0 prepares the cache while the others wait, up to
+cards, gloo with ``platform=cpu``. ``train`` trains either model family
+data-parallel (the U7 spectrogram U-Net's batch norm takes its statistics
+over every rank's rows; process 0 prepares the cache while the others wait,
+up to
 ``WAVEUNET_PREPARE_TIMEOUT_S`` seconds), ``evaluate`` scores a disjoint
 track shard on each card and process 0 prints the table, and ``predict``
 shards the song's windows over the cards.

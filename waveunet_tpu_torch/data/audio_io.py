@@ -3,9 +3,12 @@
 The port's counterpart of the WAV path of ``waveunet_tpu/data/audio_io.py``:
 a RIFF reader for PCM 8/16/24/32-bit and IEEE float 32/64-bit (odd chunks
 padded, WAVE_FORMAT_EXTENSIBLE), PCM 16-bit or float32 out, and ``load``
-with mono downmix and resampling (``ops/resample.py``). Audio is float32
-``(n_frames, n_channels)``, in [-1, 1] for PCM. A malformed file raises
-``ValueError``. Other formats (mp3, stems through ffmpeg) are not ported.
+with mono downmix and resampling (``ops/resample.py``). ``load`` also
+decodes MPEG audio (``.mp3``, ``.mp2``, ``.mpga``) through the system
+libmpg123 (``data/mp3.py``). Audio is float32 ``(n_frames, n_channels)``,
+in [-1, 1] for PCM. A malformed WAV raises ``ValueError``. The JAX
+package's soundfile and ffmpeg fallbacks (other formats, MUSDB stems) are
+not ported.
 """
 
 from __future__ import annotations
@@ -109,13 +112,24 @@ def write_wav(path: str, audio: np.ndarray, sr: int,
 
 def load(path: str, sr: Optional[int] = None, mono: bool = True
          ) -> Tuple[np.ndarray, int]:
-    """Load a WAV file as float32 (frames, channels): the mono downmix
-    averages the channels, and ``sr`` resamples when it differs from the
-    file's rate."""
-    if os.path.splitext(path)[1].lower() not in (".wav", ".wave"):
-        raise ValueError(f"{path}: only WAV files are read by the port "
-                         f"(mp3 and ffmpeg decoding are not ported)")
-    audio, native_sr = load_wav(path)
+    """Load a WAV or MPEG audio file as float32 (frames, channels): the
+    mono downmix averages the channels, and ``sr`` resamples when it
+    differs from the file's rate. MPEG audio needs libmpg123
+    (``RuntimeError`` without it); other formats raise ``ValueError``."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".wav", ".wave"):
+        audio, native_sr = load_wav(path)
+    elif ext in (".mp3", ".mp2", ".mpga"):
+        from waveunet_tpu_torch.data import mp3
+        if not mp3.available():
+            raise RuntimeError(f"{path}: decoding MPEG audio needs the "
+                               f"system library libmpg123, which is not "
+                               f"available")
+        audio, native_sr = mp3.decode_mp3(path)
+    else:
+        raise ValueError(f"{path}: the port reads WAV and MPEG audio "
+                         f"(.mp3/.mp2/.mpga) only; the soundfile and "
+                         f"ffmpeg decoders are not ported")
     if mono and audio.shape[1] > 1:
         audio = np.mean(audio, axis=1, keepdims=True)
     if sr is not None and sr != native_sr:

@@ -38,8 +38,10 @@ every rank returns the same stems, and a world of one is the single-device
 engine bit for bit. Each rank stages the song itself and slabs are off;
 on several ranks the tail chunk stays at the full batch, as in the JAX
 package. ``precompile`` captures the per-rank forward; the gather stays
-outside the graphs.
-``resident_sweep`` is the single-card bench path and takes no mesh.
+outside the graphs. ``resident_sweep`` splits its chunks the same way and
+gathers each chunk's outputs before the device stitch on every rank; its
+CUDA graph captures the gather under NCCL, and under gloo, whose
+collectives cannot be captured, it runs eagerly.
 """
 
 from __future__ import annotations
@@ -278,8 +280,9 @@ class Separator:
     # -- the device-resident sweep --------------------------------------------
     def resident_chunk_sizes(self, n_win: int) -> List[int]:
         """The chunk schedule ``resident_sweep`` runs: one exact chunk for a
-        song below one batch, the pow2 split tail otherwise."""
-        if self.mesh is None and n_win < self.batch:
+        song below one batch, the pow2 split tail otherwise; on a mesh of
+        several ranks, full batches they share."""
+        if not self._full_tail and n_win < self.batch:
             return [n_win]
         return self._chunk_sizes(n_win)
 
@@ -300,10 +303,13 @@ class Separator:
         ``graphed`` (default: on a CUDA device) captures ``fn`` as one CUDA
         graph on its first call, for its song length and the params of that
         call; each call then replays it, and its outputs are overwritten by
-        the next call."""
-        if self.mesh is not None:
-            raise ValueError("resident_sweep is the single-card bench path; "
-                             "build the Separator without a mesh")
+        the next call.
+
+        On a ``mesh`` every rank calls ``fn`` with the same song: each chunk
+        of ``k`` windows runs ``k // mesh.size`` of them a rank, and the
+        outputs are gathered exactly (``gather_rows``) before the stitch,
+        so every rank returns the same sources. Under gloo the sweep runs
+        eagerly whatever ``graphed`` says, and prints so."""
         if n_total < self.out_len:
             raise ValueError(f"song shorter than one output window "
                              f"({n_total} < {self.out_len}); pad first")
@@ -316,6 +322,10 @@ class Separator:
                                  f"< {n_win} windows")
         else:
             sizes = self.resident_chunk_sizes(n_win)
+        mesh = self.mesh
+        if mesh is not None and any(k % mesh.size for k in sizes):
+            raise ValueError(f"chunk sizes {sizes} do not divide over "
+                             f"{mesh.size} mesh ranks")
         pos_pad = np.full((sum(sizes),), positions[-1], np.int64)
         pos_pad[:n_win] = positions
         pos_dev = torch.from_numpy(pos_pad).to(self.device)
@@ -327,8 +337,15 @@ class Separator:
         def sweep(params, song):
             parts, off = [], 0
             for k in sizes:
-                parts.append(self._chunk_fwd(params, song,
-                                             pos_dev[off:off + k]))
+                if mesh is None:
+                    parts.append(self._chunk_fwd(params, song,
+                                                 pos_dev[off:off + k]))
+                else:  # this rank's rows, gathered
+                    b = k // mesh.size
+                    lo = off + mesh.rank * b
+                    part = self._chunk_fwd(params, song, pos_dev[lo:lo + b])
+                    parts.append({n: gather_rows(v, mesh)
+                                  for n, v in part.items()})
                 off += k
             out = {}
             for name in parts[0]:
@@ -351,6 +368,12 @@ class Separator:
 
         if graphed is None:
             graphed = self.device.type == "cuda"
+        if graphed and mesh is not None and mesh.backend not in (None,
+                                                                 "nccl"):
+            print(f"resident sweep over a {mesh.size}-rank mesh "
+                  f"({mesh.backend}): eager, {mesh.backend} collectives "
+                  f"cannot be captured in a CUDA graph")
+            graphed = False
         if not graphed:
             return sweep, positions
         if self.device.type != "cuda":

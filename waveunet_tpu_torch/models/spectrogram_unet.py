@@ -19,7 +19,9 @@ Batch norm (eps 0.001, centre only) uses the moving statistics of
 ``state`` at inference; training normalises by the batch's statistics and
 moves the state's by 0.999, threaded through as the JAX package does, and
 applies dropout 0.5 on the first three up layers from an explicit
-``torch.Generator``. The 2-D convs run with cuDNN's deterministic
+``torch.Generator``. On a mesh of several ranks the batch is the global
+batch: its statistics come through a differentiable all-reduce and each
+rank keeps its rows of the global dropout masks. The 2-D convs run with cuDNN's deterministic
 algorithms, so a song separates to the same bits every time. bf16 compute
 raises.
 """
@@ -37,6 +39,7 @@ from waveunet_tpu_torch.ops.conv import (conv2d, conv2d_init,
                                          conv2d_transpose, precision_scope)
 from waveunet_tpu_torch.ops.primitives import leaky_relu, pad_freqs
 from waveunet_tpu_torch.ops.stft import istft, stft
+from waveunet_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
 
 BN_EPS = 0.001
 BN_MOMENTUM = 0.999
@@ -103,13 +106,26 @@ def _bn(x: torch.Tensor, beta: torch.Tensor,
 
 
 def _bn_train(x: torch.Tensor, beta: torch.Tensor,
-              stats: Dict[str, torch.Tensor]
+              stats: Dict[str, torch.Tensor], mesh: Optional[Mesh] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Centre-only batch norm by the batch's statistics (population
     variance); returns (y, the moving statistics moved by 0.999), the new
-    statistics carrying no gradient."""
-    mean = x.mean(dim=(0, 1, 2))
-    var = x.var(dim=(0, 1, 2), unbiased=False)
+    statistics carrying no gradient.
+
+    On a mesh of several ranks, ``x`` is this rank's rows and the
+    statistics are the whole sharded batch's, as ``jnp.mean``/``jnp.var``
+    take them under a batch sharding: the mean is the all-reduced sum over
+    the global count, the variance a second pass, the all-reduced sum of
+    squared deviations from that mean over the same count. Every rank then
+    moves the same statistics."""
+    if mesh is None or mesh.size == 1:
+        mean = x.mean(dim=(0, 1, 2))
+        var = x.var(dim=(0, 1, 2), unbiased=False)
+    else:
+        count = x.shape[0] * x.shape[1] * x.shape[2] * mesh.size
+        mean = all_reduce_sum(x.sum(dim=(0, 1, 2)), mesh) / count
+        var = all_reduce_sum(torch.square(x - mean).sum(dim=(0, 1, 2)),
+                             mesh) / count
     new = {"mean": BN_MOMENTUM * stats["mean"]
            + (1 - BN_MOMENTUM) * mean.detach(),
            "var": BN_MOMENTUM * stats["var"]
@@ -117,9 +133,20 @@ def _bn_train(x: torch.Tensor, beta: torch.Tensor,
     return (x - mean) * torch.rsqrt(var + BN_EPS) + beta, new
 
 
-def dropout(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """Keep each value with probability 0.5, scaled by 2; zero the rest."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 0.5
+def dropout(x: torch.Tensor, generator: torch.Generator,
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Keep each value with probability 0.5, scaled by 2; zero the rest.
+    The mask is drawn on the generator's device. On a mesh of several
+    ranks each rank draws the mask of the whole global batch, as one
+    process would, and keeps its own rows."""
+    shape = tuple(x.shape)
+    rows = slice(None)
+    if mesh is not None and mesh.size > 1:
+        n = shape[0]
+        shape = (n * mesh.size,) + shape[1:]
+        rows = slice(mesh.rank * n, (mesh.rank + 1) * n)
+    keep = torch.rand(shape, generator=generator,
+                      device=generator.device)[rows].to(x.device) < 0.5
     return torch.where(keep, x / 0.5, 0.0)
 
 
@@ -127,7 +154,8 @@ def apply_spectrogram_unet(params: Tree, cfg: Config, mix: torch.Tensor,
                            training: bool = False,
                            state: Optional[Tree] = None,
                            return_spectrogram: bool = False,
-                           generator: Optional[torch.Generator] = None
+                           generator: Optional[torch.Generator] = None,
+                           mesh: Optional[Mesh] = None
                            ) -> Tuple[Dict[str, torch.Tensor], Tree]:
     """mix ``[B, N, 1]`` -> ({source: audio ``[B, M, 1]``} or magnitudes
     ``[B, F, 513]``), new state.
@@ -136,8 +164,11 @@ def apply_spectrogram_unet(params: Tree, cfg: Config, mix: torch.Tensor,
     statistics and returns ``state`` unchanged. ``training=True`` is
     differentiable, normalises by batch statistics, returns the moved
     statistics, and drops half of the first three up layers' values (kept
-    ones scaled by 2) with masks drawn from ``generator`` (a generator on
-    mix's device; seed 0 when None). The masks cannot match ``jax.random``'s.
+    ones scaled by 2) with masks drawn from ``generator`` (seed 0 on mix's
+    device when None). The masks cannot match ``jax.random``'s. With a
+    ``mesh`` of several ranks (training only), ``mix`` is this rank's rows
+    of the global batch: the batch statistics and the dropout masks are
+    the global batch's (``_bn_train``, ``dropout``).
     """
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
@@ -151,12 +182,12 @@ def apply_spectrogram_unet(params: Tree, cfg: Config, mix: torch.Tensor,
     with (contextlib.nullcontext() if training else torch.no_grad()), \
             precision_scope(cfg.conv_precision), deterministic_cudnn():
         return _forward(params, cfg, mix, training, state, return_spectrogram,
-                        generator)
+                        generator, mesh)
 
 
 def _forward(params: Tree, cfg: Config, mix: torch.Tensor, training: bool,
              state: Tree, return_spectrogram: bool,
-             generator: Optional[torch.Generator]
+             generator: Optional[torch.Generator], mesh: Optional[Mesh]
              ) -> Tuple[Dict[str, torch.Tensor], Tree]:
     L = cfg.num_layers
     new_state: Tree = {}
@@ -164,7 +195,8 @@ def _forward(params: Tree, cfg: Config, mix: torch.Tensor, training: bool,
     def norm(key, x):
         if not training:
             return _bn(x, params[key]["beta"], state[key])
-        y, new_state[key] = _bn_train(x, params[key]["beta"], state[key])
+        y, new_state[key] = _bn_train(x, params[key]["beta"], state[key],
+                                      mesh)
         return y
 
     spec = stft(mix[..., 0])                              # [B, F, 513]
@@ -187,7 +219,7 @@ def _forward(params: Tree, cfg: Config, mix: torch.Tensor, training: bool,
             cur = torch.relu(norm(f"{s}/up_{i}_bn", cur))
             cur = torch.cat([skips[-i - 1], cur], dim=3)
             if i < 3 and training:  # dropout(0.5) on the first 3 up layers
-                cur = dropout(cur, generator)
+                cur = dropout(cur, generator, mesh)
         mask = torch.sigmoid(conv2d_transpose(cur, params[f"{s}/mask"],
                                               stride=(2, 2)))
         masks[s] = pad_freqs(mask, mix_mag.shape[2], axis=2,

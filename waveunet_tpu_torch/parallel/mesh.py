@@ -187,6 +187,31 @@ def all_reduce_(t: torch.Tensor, mesh: Mesh, op: str = "sum") -> torch.Tensor:
     return t
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """SUM over the ranks whose backward is the SUM of the ranks' incoming
+    gradients: the gradient of a sum every rank reads."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return all_reduce_(t.clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.clone(), ctx.mesh), None
+
+
+def all_reduce_sum(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The sum of ``t`` over the mesh's ranks, differentiable: the backward
+    all-reduces the incoming gradient (SUM), so each rank's share of a
+    statistic taken over the whole sharded batch gets the gradient of every
+    rank's use of it. ``t`` itself, with no collective, in a world of one
+    (or without a mesh)."""
+    if mesh is None or mesh.size == 1:
+        return t
+    return _AllReduceSum.apply(t, mesh)
+
+
 def broadcast_(t: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
     """In place: rank ``src``'s values of ``t`` on every rank."""
     if mesh.backend is None:

@@ -30,9 +30,13 @@ over the ranks before Adam, so the ranks' updates are identical, and the
 parameters are broadcast from rank 0 once. A world of one is the mesh-free
 step bit for bit. Under NCCL the fused epoch captures the all-reduce in
 its CUDA graph; gloo collectives cannot be captured, so under gloo it runs
-the eager loop. The spectrogram U-Net's batch norm would need statistics
-synchronised over the ranks, which the port lacks: it trains on a mesh of
-one rank only.
+the eager loop. The spectrogram U-Net takes its batch-norm statistics over
+the whole sharded batch (a differentiable all-reduce of each rank's sums,
+``models/spectrogram_unet.py::_bn_train``) and each rank draws the dropout
+masks of the global batch and keeps its rows, so N ranks step as one
+process does at the same global batch. Its fused epoch runs the eager loop
+on every backend, as it does without a mesh: its dropout generator is
+seeded on the host each step.
 """
 
 from __future__ import annotations
@@ -58,10 +62,12 @@ Tree = Dict[str, Dict[str, torch.Tensor]]
 Batch = Dict[str, torch.Tensor]
 
 
-def make_forward(cfg: Config) -> Callable:
+def make_forward(cfg: Config, mesh: Optional[Mesh] = None) -> Callable:
     """forward(params, state, x, training, generator) -> (outputs, new_state):
     raw audio, or U7a's magnitudes when it trains on the L1 magnitude loss;
-    the Wave-U-Net's state is empty."""
+    the Wave-U-Net's state is empty. ``mesh``: the spectrogram U-Net trains
+    with the global batch's statistics and dropout masks (``x`` is this
+    rank's rows)."""
     if cfg.network == "unet":
         def forward(params, state, x, training, generator=None):
             return apply_waveunet(params, cfg, x, training), state
@@ -74,13 +80,16 @@ def make_forward(cfg: Config) -> Callable:
     def forward(params, state, x, training, generator=None):
         return apply_spectrogram_unet(params, cfg, x, training, state,
                                       return_spectrogram=return_spec,
-                                      generator=generator)
+                                      generator=generator,
+                                      mesh=mesh if training else None)
     return forward
 
 
-def make_loss_fn(cfg: Config, training: bool) -> Callable:
-    """loss(params, state, batch, generator) -> (0-d tensor, new_state)."""
-    forward = make_forward(cfg)
+def make_loss_fn(cfg: Config, training: bool,
+                 mesh: Optional[Mesh] = None) -> Callable:
+    """loss(params, state, batch, generator) -> (0-d tensor, new_state): the
+    loss of ``batch`` (this rank's rows with ``mesh``)."""
+    forward = make_forward(cfg, mesh)
     spectro_l1 = cfg.network == "unet_spectrogram" and not cfg.raw_audio_loss
 
     def loss_fn(params, state, batch, generator=None):
@@ -209,16 +218,12 @@ def _replicate_once(held: Dict, mesh: Mesh, params: Tree, mstate: Tree,
         held["replicated"] = key
 
 
-def _mesh_and_device(cfg: Config, mesh, device: DeviceLike
+def _mesh_and_device(mesh, device: DeviceLike
                      ) -> Tuple[Optional[Mesh], torch.device]:
     """The checked mesh and the step's device (the mesh's, when given)."""
     mesh = check_mesh(mesh)
     if mesh is None:
         return None, resolve_device(device)
-    if mesh.size > 1 and cfg.network != "unet":
-        raise ValueError(
-            "the spectrogram U-Net's batch norm needs statistics over the "
-            "whole sharded batch; it trains on a mesh of one rank only")
     return mesh, mesh.device
 
 
@@ -261,8 +266,8 @@ def make_train_step(cfg: Config, lr: float, device: DeviceLike = None,
     of the global batch (``put_batch_sharded``), the loss and gradients
     are averaged over the ranks, and the first call for a set of parameter
     tensors broadcasts them (and the model and Adam state) from rank 0."""
-    mesh, dev = _mesh_and_device(cfg, mesh, device)
-    loss_fn = make_loss_fn(cfg, training=True)
+    mesh, dev = _mesh_and_device(mesh, device)
+    loss_fn = make_loss_fn(cfg, training=True, mesh=mesh)
     tx = make_optimizer(lr)
     held: Dict = {}
 
@@ -315,19 +320,22 @@ def make_scanned_epoch(cfg: Config, lr: float, n_steps: int,
     all-reduce; under gloo, which cannot be captured, the epoch runs the
     eager loop, and the choice is printed.
     """
-    mesh, dev = _mesh_and_device(cfg, mesh, device)
+    mesh, dev = _mesh_and_device(mesh, device)
     use_graph = dev.type == "cuda" and cfg.network == "unet"
     if mesh is not None:
         if use_graph and mesh.backend not in (None, "nccl"):
             use_graph = False
             why = (f"the eager loop: {mesh.backend} collectives cannot be "
                    f"captured in a CUDA graph")
+        elif cfg.network != "unet":
+            why = (f"the eager loop on {dev}: the spectrogram U-Net's "
+                   f"dropout generator is seeded on the host each step")
         else:
             why = ("one CUDA graph a step, the all-reduce captured"
                    if use_graph else f"the eager loop on {dev}")
         print(f"fused epoch over a {mesh.size}-rank mesh "
               f"({mesh.backend or 'no process group'}): {why}")
-    loss_fn = make_loss_fn(cfg, training=True)
+    loss_fn = make_loss_fn(cfg, training=True, mesh=mesh)
     tx = make_optimizer(lr)
     chunk = chunk if chunk and chunk < n_steps else n_steps
     static: Dict = {}
