@@ -60,11 +60,19 @@ wall seconds, each under a watchdog:
      to the eager run; walls, device time and idle share beside the eager
      requests';
   10. spectro: U7 at full width separating 30 s on the card and on the CPU,
-     compared, and through its CUDA graphs (bit for bit); one full-width
+     compared, and through its CUDA graphs (bit for bit); then with
+     compute_dtype="bfloat16": every distinct conv2d and conv2d_transpose
+     of the clip's forward against fp64 on the same bf16-rounded operands
+     (1e-5 of its largest value) and on the unrounded ones (more than
+     1e-4), both routes (fp32 and TF32 on the rounded operands) timed; the
+     clip in bf16 within 5e-3 of the CPU's bf16 and of the card's fp32 and
+     more than 1e-5 from fp32, repeatable, its graphs bit for bit, walls
+     beside fp32's; U7 launches no kernel of the port; one full-width
      U7 training step (batch 2, dropout masks drawn on the CPU for both)
      on the card against the CPU: the loss within 1e-5 relative, every
      gradient against fp64 within 4x the CPU's distance or 2e-3, the moved
-     batch-norm statistics; and a step's ms at the published batch of 4;
+     batch-norm statistics, and the same step under the bf16 config bit for
+     bit the fp32 one's; and a step's ms at the published batch of 4;
   11. stream: full_44KHz streamed in uneven pushes, against the offline
      output on the card, and batched drains against serial ones;
   12. bench: the port's bench (waveunet_tpu_torch/bench.py) at its
@@ -169,6 +177,13 @@ REPEATS = 3          # each request is served this many times; median wall
 SWEEP_ATOL = 2e-6    # sweep vs separate, conv sources (tests/test_infer.py)
 SWEEP_DIFF_ATOL = 4e-5  # the int16 difference source: mix quantised or not
 SPECTRO_ATOL = 5e-5  # U7 on the card vs the CPU path (tests/test_compat.py)
+BF16_OP_RTOL = 1e-5  # a bf16 conv vs fp64 on its rounded operands, of the
+                     # output's largest value: fp32 sums of exact products
+BF16_ROUNDED_RTOL = 1e-4  # ... and further than this from fp64 on the
+                          # unrounded operands: the rounding really happened
+SPECTRO_BF16_ATOL = 5e-3  # U7 in bf16 vs the CPU's bf16 and the card's
+                          # fp32 (the JAX package's, tests/test_spectrogram.py)
+BF16_DIFFERS = 1e-5  # bf16 differs from fp32 by more than this
 STREAM_ATOL = 1e-5   # stream vs offline (tests/test_streaming.py)
 STREAM_BATCH_ATOL = 1e-6  # batched vs serial drains where conv plans differ
 BENCH_REPS_MIN = 14  # the bench's REPS_MIN
@@ -932,6 +947,7 @@ def main() -> int:
         spectro_row = spectro_check(get_config, Separator, kernels, clip, np,
                                     torch, dev)
         path_launches["spectro"] = spectro_row["launches"]
+        path_launches["spectro_bf16"] = spectro_row["bf16"]["launches"]
 
     with phase("stream"):
         stream_row = stream_check(get_config, model, Separator, conv1d_fused,
@@ -1521,8 +1537,147 @@ def spectro_check(get_config, Separator, kernels, clip, np, torch, dev):
         fail("two eager U7 separations of one clip differ")
     if not same:
         fail("U7 through its CUDA graphs differs from the eager run")
+    if any(counted.values()):
+        fail(f"U7 launched kernels of the port: {counted}")
+    row["bf16"] = spectro_bf16_check(cfg, params, state, Separator, kernels,
+                                     audio, on_card, row, np, torch)
     row["train_step"] = u7_step_parity(get_config, np, torch, dev)
     return row
+
+
+def spectro_bf16_check(cfg, params, state, Separator, kernels, audio, fp32,
+                       fp32_row, np, torch):
+    """U7 with compute_dtype="bfloat16" at full width: the op check over
+    every distinct 2-D conv of the clip's forward (``u7_bf16_ops``), then
+    the clip separated on the card against the CPU's bf16 path and the
+    card's fp32 output ``fp32``, eager twice and through its graphs."""
+    cfg16 = cfg.replace(compute_dtype="bfloat16")
+    sr = cfg.expected_sr
+    ops = u7_bf16_ops(cfg16, params, state, Separator, audio, np, torch)
+    sep = Separator(cfg16, params, model_state=state)
+    first = sep.separate(audio, sr)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    on_card = sep.separate(audio, sr)
+    wall = time.perf_counter() - t0
+    counted = kernels.launch_counts()
+    on_cpu = Separator(cfg16, params, model_state=state,
+                       device="cpu").separate(audio, sr)
+    n_graphs = sep.precompile(max_song_s=30.0)
+    t0 = time.perf_counter()
+    graphed = sep.separate(audio, sr)
+    graph_wall = time.perf_counter() - t0
+
+    def diff(a, b):
+        err = max(float(np.abs(a[k] - b[k]).max()) for k in b)
+        db = max(float(10 * np.log10(np.sum((a[k] - b[k]) ** 2)
+                                     / np.sum(b[k] ** 2))) for k in b)
+        return err, db
+
+    (err_cpu, db_cpu), (err_fp32, db_fp32) = (diff(on_card, on_cpu),
+                                              diff(on_card, fp32))
+    same = all(np.array_equal(graphed[k], on_card[k]) for k in on_card)
+    repeatable = all(np.array_equal(first[k], on_card[k]) for k in on_card)
+    row = {"ops": ops,
+           "max_abs_err_vs_cpu_bf16": err_cpu, "db_vs_cpu_bf16": db_cpu,
+           "max_abs_diff_vs_card_fp32": err_fp32, "db_vs_card_fp32": db_fp32,
+           "tol": SPECTRO_BF16_ATOL, "differs_above": BF16_DIFFERS,
+           "eager_wall_s": wall, "graphed_wall_s": graph_wall,
+           "graphs": n_graphs, "fp32_eager_wall_s": fp32_row["eager_wall_s"],
+           "fp32_graphed_wall_s": fp32_row["graphed_wall_s"],
+           "graph_identical_to_eager": same,
+           "eager_identical_run_to_run": repeatable, "launches": counted}
+    brief = {k: v for k, v in row.items() if k != "ops"}
+    print(f"spectro bf16 {json.dumps(brief)}", flush=True)
+    if not all(np.isfinite(on_card[k]).all()
+               and on_card[k].shape == (audio.shape[0], 1) for k in on_card):
+        fail("U7 in bf16 on the card gave non-finite or misshapen audio")
+    if not err_cpu <= SPECTRO_BF16_ATOL:
+        fail("U7 in bf16 on the card disagrees with the CPU's bf16 path")
+    if not BF16_DIFFERS < err_fp32 <= SPECTRO_BF16_ATOL:
+        fail(f"U7 in bf16 is {err_fp32:.3e} from fp32 on the card "
+             f"(allowed: above {BF16_DIFFERS}, at most {SPECTRO_BF16_ATOL})")
+    if not repeatable:
+        fail("two eager bf16 U7 separations of one clip differ")
+    if not same:
+        fail("bf16 U7 through its CUDA graphs differs from the eager run")
+    if any(counted.values()):
+        fail(f"bf16 U7 launched kernels of the port: {counted}")
+    return row
+
+
+def u7_bf16_ops(cfg16, params, state, Separator, audio, np, torch):
+    """Every distinct conv2d and conv2d_transpose (op, input and kernel
+    shape) of U7's bf16 forward over the clip, recorded on its first chunk,
+    run again with bf16 compute and held against fp64 convs of the same
+    rounded operands and of the unrounded ones. Beside the port's route
+    (``ops/conv.py::round_operands``: an fp32 conv on the rounded operands)
+    the TF32 route, the same conv on the same rounded operands under
+    ``tf32_scope(True)``, is held against fp64 and timed, and so are the
+    two casts of the port's route alone (activation and kernel)."""
+    from waveunet_tpu_torch.models import spectrogram_unet as su
+    from waveunet_tpu_torch.ops import conv as conv_mod
+
+    seen = {}
+
+    def recorder(name, fn):
+        def rec(x, p, **kw):
+            key = (name, tuple(x.shape), tuple(p["kernel"].shape))
+            seen.setdefault(key, (fn, x.clone(), p, dict(kw)))
+            return fn(x, p, **kw)
+        return rec
+
+    su.conv2d = recorder("conv2d", conv_mod.conv2d)
+    su.conv2d_transpose = recorder("conv2d_transpose",
+                                   conv_mod.conv2d_transpose)
+    try:
+        Separator(cfg16, params, model_state=state).separate(
+            audio, cfg16.expected_sr)
+    finally:
+        su.conv2d, su.conv2d_transpose = (conv_mod.conv2d,
+                                          conv_mod.conv2d_transpose)
+    bf16 = torch.bfloat16
+    rows = []
+    with su.deterministic_cudnn():
+        for (name, xs, ks), (fn, x, p, kw) in seen.items():
+            kw.pop("compute_dtype")
+            p64 = {n: t.double() for n, t in p.items()}
+            ref = fn(x.double(), p64, compute_dtype=bf16, **kw)
+            raw = fn(x.double(), p64, **kw)
+            scale = ref.abs().max().item()
+            y = fn(x, p, compute_dtype=bf16, **kw)  # the port's route
+            err = (y.double() - ref).abs().max().item() / scale
+            off = (y.double() - raw).abs().max().item() / scale
+            xr, kr, _ = conv_mod.round_operands(x, p["kernel"], bf16)
+            pr = {"kernel": kr, "bias": p["bias"]}
+            with conv_mod.tf32_scope(True):
+                y32 = fn(xr, pr, **kw)
+                tf32_ms = time_cuda(lambda: fn(xr, pr, **kw), torch)
+            routes = {
+                "fp32": {"err": err, "ms": time_cuda(
+                    lambda: fn(x, p, compute_dtype=bf16, **kw), torch)},
+                "tf32": {"err": (y32.double() - ref).abs().max().item()
+                         / scale, "ms": tf32_ms}}
+            k = p["kernel"]
+            row = {"op": name, "x": list(xs), "kernel": list(ks),
+                   "err_vs_fp64_rounded": err,
+                   "diff_vs_fp64_unrounded": off, "scale": scale,
+                   "routes": routes,
+                   "fp32_unrounded_ms": time_cuda(lambda: fn(x, p, **kw),
+                                                  torch),
+                   "input_round_ms": time_cuda(
+                       lambda: x.to(bf16).to(x.dtype), torch),
+                   "kernel_round_ms": time_cuda(
+                       lambda: k.to(bf16).to(k.dtype), torch)}
+            print(f"spectro bf16 op {json.dumps(row)}", flush=True)
+            rows.append(row)
+            if not err <= BF16_OP_RTOL:
+                fail(f"bf16 {name} {xs}: {err:.3e} of its largest value "
+                     f"from fp64 on the rounded operands")
+            if not off > BF16_ROUNDED_RTOL:
+                fail(f"bf16 {name} {xs}: only {off:.3e} from fp64 on the "
+                     f"unrounded operands, the operands were not rounded")
+    return rows
 
 
 U7_PARITY_BATCH = 2   # rows of the U7 training step held card vs CPU
@@ -1570,7 +1725,7 @@ def u7_step_parity(get_config, np, torch, dev):
     cfg, params, state, batch = u7_inputs(get_config, np, torch,
                                           U7_PARITY_BATCH)
 
-    def run(device, dtype):
+    def run(device, dtype, cfg=cfg):
         gen = torch.Generator().manual_seed(SEED)  # CPU: the same masks
         with step_mod._step_scope(cfg):
             return step_mod.value_and_grad(
@@ -1583,6 +1738,13 @@ def u7_step_parity(get_config, np, torch, dev):
     l_dev, st_dev, g_dev = run(dev, torch.float32)
     torch.cuda.synchronize()
     t_dev = time.perf_counter() - t0
+    # a bf16 config trains in fp32: the same step, bit for bit
+    l16, st16, g16 = run(dev, torch.float32,
+                         cfg.replace(compute_dtype="bfloat16"))
+    bf16_same = torch.equal(l16, l_dev) and all(
+        torch.equal(a[k][n], b[k][n]) for a, b in ((st16, st_dev),
+                                                  (g16, g_dev))
+        for k in b for n in b[k])
     l_cpu, st_cpu, g_cpu = run("cpu", torch.float32)
     l_64, _, g_64 = run("cpu", torch.float64)
     top = max(r.abs().max().item() for v in g_64.values() for r in v.values())
@@ -1633,6 +1795,7 @@ def u7_step_parity(get_config, np, torch, dev):
            "grad_err_cpu_max": max(e_cpu.values()),
            "grad_rel_l2": {"card": l2_dev, "cpu": l2_cpu},
            "moved_stats_max_abs_err": stats_err,
+           "bf16_config_identical": bf16_same,
            "seconds_card_first": t_dev,
            "step_ms_batch4": float(np.median(ms)), "step_loss": float(loss)}
     print(f"spectro train step parity (U7 full width): {json.dumps(row)}",
@@ -1646,6 +1809,9 @@ def u7_step_parity(get_config, np, torch, dev):
              f"{l2_cpu:.3e}")
     if not stats_err <= SPECTRO_ATOL:
         fail(f"U7 moved statistics {stats_err:.3e} from the CPU's")
+    if not bf16_same:
+        fail("a U7 training step under the bf16 config differs from the "
+             "fp32 config's")
     if not np.isfinite(row["step_loss"]):
         fail("a U7 training step on the card gave a non-finite loss")
     return row

@@ -22,8 +22,13 @@ applies dropout 0.5 on the first three up layers from an explicit
 ``torch.Generator``. On a mesh of several ranks the batch is the global
 batch: its statistics come through a differentiable all-reduce and each
 rank keeps its rows of the global dropout masks. The 2-D convs run with cuDNN's deterministic
-algorithms, so a song separates to the same bits every time. bf16 compute
-raises.
+algorithms, so a song separates to the same bits every time.
+
+``Config.compute_dtype="bfloat16"`` rounds both operands of every down, up
+and mask conv to bf16 at inference and sums them in fp32
+(``ops/conv.py::conv2d``); STFT, iSTFT, log1p, batch norm, the sigmoid and
+``pad_freqs`` stay fp32. Training computes in fp32 whatever it says, as the
+JAX package does.
 """
 
 from __future__ import annotations
@@ -170,10 +175,6 @@ def apply_spectrogram_unet(params: Tree, cfg: Config, mix: torch.Tensor,
     of the global batch: the batch statistics and the dropout masks are
     the global batch's (``_bn_train``, ``dropout``).
     """
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: the port computes the "
-            f"spectrogram U-Net in float32 only")
     if mix.shape[2] != 1:
         raise ValueError("the spectrogram model is mono-only")
     state = state or {}
@@ -191,6 +192,9 @@ def _forward(params: Tree, cfg: Config, mix: torch.Tensor, training: bool,
              ) -> Tuple[Dict[str, torch.Tensor], Tree]:
     L = cfg.num_layers
     new_state: Tree = {}
+    # bf16 conv operands at inference only (module docstring)
+    cdtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+              and not training else None)
 
     def norm(key, x):
         if not training:
@@ -210,18 +214,21 @@ def _forward(params: Tree, cfg: Config, mix: torch.Tensor, training: bool,
             if cur.shape[1] % 2 or cur.shape[2] % 2:
                 raise ValueError(f"spectrogram dims must halve cleanly, "
                                  f"got {tuple(cur.shape)}")
-            cur = conv2d(cur, params[f"{s}/down_{i}"], stride=(2, 2))
+            cur = conv2d(cur, params[f"{s}/down_{i}"], stride=(2, 2),
+                         compute_dtype=cdtype)
             cur = leaky_relu(norm(f"{s}/down_{i}_bn", cur))
             if i < L - 1:
                 skips.append(cur)
         for i in range(L - 1):
-            cur = conv2d_transpose(cur, params[f"{s}/up_{i}"], stride=(2, 2))
+            cur = conv2d_transpose(cur, params[f"{s}/up_{i}"], stride=(2, 2),
+                                   compute_dtype=cdtype)
             cur = torch.relu(norm(f"{s}/up_{i}_bn", cur))
             cur = torch.cat([skips[-i - 1], cur], dim=3)
             if i < 3 and training:  # dropout(0.5) on the first 3 up layers
                 cur = dropout(cur, generator, mesh)
         mask = torch.sigmoid(conv2d_transpose(cur, params[f"{s}/mask"],
-                                              stride=(2, 2)))
+                                              stride=(2, 2),
+                                              compute_dtype=cdtype))
         masks[s] = pad_freqs(mask, mix_mag.shape[2], axis=2,
                              value=0.5)[..., 0]
         mags[s] = mix_mag * masks[s]

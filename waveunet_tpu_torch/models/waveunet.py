@@ -38,7 +38,7 @@ from waveunet_tpu_torch.config import Config
 from waveunet_tpu_torch.device import DeviceLike, resolve_device
 from waveunet_tpu_torch.ops import shapes
 from waveunet_tpu_torch.ops.conv import (conv1d, conv1d_init, precision_scope,
-                                         same_pads)
+                                         round_operands, same_pads)
 from waveunet_tpu_torch.ops.kernels.conv1d_fused import conv1d_lrelu
 from waveunet_tpu_torch.ops.kernels.interp import learned_interp
 from waveunet_tpu_torch.ops.primitives import (audio_clip, crop,
@@ -92,13 +92,12 @@ def _conv_act(x: torch.Tensor, p: Dict[str, torch.Tensor],
     """conv + bias + LeakyReLU through the kernel wrapper; a same-padded
     conv pads explicitly (TF SAME: the odd extra sample at the end). With
     ``bf16`` the operands are rounded to bfloat16 first and the kernel
-    accumulates them in fp32 (``ops/conv.py::conv1d``'s inference bf16)."""
+    accumulates them in fp32 (``ops/conv.py::round_operands``; the
+    kernel's 3xTF32 arithmetic reads no TF32 switch, so its scope goes)."""
     w = p["kernel"]
     if not context:
         x = F.pad(x, (0, 0, *same_pads(x.shape[1], w.shape[0])))
-    if bf16:
-        x = x.to(torch.bfloat16).float()
-        w = w.to(torch.bfloat16).float()
+    x, w, _ = round_operands(x, w, torch.bfloat16 if bf16 else None)
     return conv1d_lrelu(x, w, p["bias"])
 
 

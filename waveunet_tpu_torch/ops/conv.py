@@ -13,7 +13,8 @@ through ``ops/kernels/conv1d_fused.py`` instead. In training every conv is
 this differentiable one (cuDNN on the card), as the JAX package keeps its
 Pallas kernels out of training. The 2-D convs of the spectrogram
 U-Net are cuDNN calls, as they are ``lax`` convolutions outside any Pallas
-kernel in the JAX package; TF32 follows ``precision_scope``.
+kernel in the JAX package; an fp32 one follows ``precision_scope``, one
+with bf16 operands (``compute_dtype`` at inference) ``round_operands``.
 """
 
 from __future__ import annotations
@@ -65,6 +66,26 @@ def tf32_scope(allow_tf32: bool) -> Iterator[None]:
 def precision_scope(conv_precision: Optional[str]):
     """``tf32_scope`` for ``conv_precision``."""
     return tf32_scope(ALLOW_TF32[conv_precision])
+
+
+def round_operands(x: torch.Tensor, k: torch.Tensor,
+                   compute_dtype: Optional[torch.dtype]):
+    """The port's one rule for reduced-precision inference operands: x and
+    the kernel k rounded to ``compute_dtype`` (bfloat16) and back to x's
+    dtype, and the TF32 scope their conv runs under. A product of two bf16
+    values is exact in fp32, so an fp32 conv on them is bf16 operands summed
+    in fp32, the JAX package's ``preferred_element_type=float32``. That conv
+    runs with TF32 off, whatever ``conv_precision`` says: a bf16 value is
+    exact in TF32 too, but cuDNN's TF32 tensor-core convs did not sum as
+    fp32 does (chip_smoke.py phase spectro's op check on an H100: up to
+    1.6e-5 of the output's largest value from an fp64 conv of the same
+    rounded operands, against at most 1.7e-6 with TF32 off). Without
+    ``compute_dtype``, x and k as given under the ambient
+    ``precision_scope``."""
+    if compute_dtype is None:
+        return x, k, contextlib.nullcontext()
+    return (x.to(compute_dtype).to(x.dtype), k.to(compute_dtype).to(x.dtype),
+            tf32_scope(False))
 
 
 def glorot_uniform(shape: Sequence[int], generator: torch.Generator,
@@ -119,22 +140,22 @@ def conv1d(x: torch.Tensor, params, *, padding: Padding = "VALID",
     ``[w, in, out]``; ``padding`` is "VALID", "SAME" or ``[(lo, hi)]``.
 
     ``compute_dtype`` (bfloat16) rounds x and the kernel to it. With
-    ``fp32_accum`` (inference) the conv then runs in fp32 on the rounded
-    values: a bf16 product is exact in fp32, so this is bf16 operands with
-    fp32 accumulation, the JAX package's ``preferred_element_type``.
-    Without it (training) the conv runs wholly in ``compute_dtype``, as the
-    JAX package's differentiated bf16 convs do.
+    ``fp32_accum`` (inference) the conv then runs in x's dtype on the
+    rounded values (``round_operands``): bf16 operands with fp32
+    accumulation, the JAX package's ``preferred_element_type``. Without it
+    (training) the conv runs wholly in ``compute_dtype``, as the JAX
+    package's differentiated bf16 convs do.
 
     The bias is added in fp32 (fp64 for a float64 input) and the result
     returns in the input's dtype. TF32 follows the ambient
-    ``precision_scope``."""
+    ``precision_scope``, except on rounded operands."""
     k, b = params["kernel"], params["bias"]
     in_dtype = x.dtype
-    if compute_dtype is not None:
-        x = x.to(compute_dtype)
-        k = k.to(compute_dtype)
-        if fp32_accum:
-            x, k = x.float(), k.float()
+    if compute_dtype is not None and not fp32_accum:
+        x, k, scope = (x.to(compute_dtype), k.to(compute_dtype),
+                       contextlib.nullcontext())
+    else:
+        x, k, scope = round_operands(x, k, compute_dtype)
     if padding == "VALID":
         lo, hi = 0, 0
     elif padding == "SAME":
@@ -142,18 +163,27 @@ def conv1d(x: torch.Tensor, params, *, padding: Padding = "VALID",
     else:
         (lo, hi), = padding
     xc = F.pad(x.transpose(1, 2), (lo, hi))          # [B, C, W + lo + hi]
-    y = F.conv1d(xc, k.permute(2, 1, 0), stride=stride,
-                 dilation=rhs_dilation)               # [B, out, W']
+    with scope:
+        y = F.conv1d(xc, k.permute(2, 1, 0), stride=stride,
+                     dilation=rhs_dilation)           # [B, out, W']
     acc = torch.promote_types(in_dtype, torch.float32)
     y = y.transpose(1, 2).to(acc) + b.to(acc)
     return y.to(in_dtype)
 
 
 def conv2d(x: torch.Tensor, params, *, stride: Tuple[int, int] = (1, 1),
-           padding: str = "SAME") -> torch.Tensor:
+           padding: str = "SAME",
+           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """2-D convolution over ``[B, H, W, C]`` with a TF-layout kernel
-    ``[h, w, in, out]``; TF's SAME puts an odd extra pad at the end."""
+    ``[h, w, in, out]``; TF's SAME puts an odd extra pad at the end.
+
+    ``compute_dtype`` (bfloat16) rounds x and the kernel to it and runs the
+    conv in x's dtype on the rounded values: for fp32 x, bf16 operands
+    summed in fp32 and an fp32 result, the JAX package's
+    ``preferred_element_type=float32`` (``round_operands``). The bias is
+    added unrounded, after the conv."""
     k, b = params["kernel"], params["bias"]
+    x, k, scope = round_operands(x, k, compute_dtype)
     kh, kw = k.shape[0], k.shape[1]
     xc = x.permute(0, 3, 1, 2)                        # [B, C, H, W]
     if padding == "SAME":
@@ -162,26 +192,37 @@ def conv2d(x: torch.Tensor, params, *, stride: Tuple[int, int] = (1, 1),
         xc = F.pad(xc, (*pw, *ph))
     elif padding != "VALID":
         raise ValueError(f"padding {padding!r}: use 'SAME' or 'VALID'")
-    y = F.conv2d(xc, k.permute(3, 2, 0, 1), stride=stride)
+    with scope:
+        y = F.conv2d(xc, k.permute(3, 2, 0, 1), stride=stride)
     return y.permute(0, 2, 3, 1) + b
 
 
 def conv2d_transpose(x: torch.Tensor, params, *,
                      stride: Tuple[int, int] = (2, 2),
-                     padding: str = "SAME") -> torch.Tensor:
+                     padding: str = "SAME",
+                     compute_dtype: Optional[torch.dtype] = None
+                     ) -> torch.Tensor:
     """2-D transposed convolution as ``tf.layers.conv2d_transpose``: the
     gradient of a conv2d whose kernel, read as ``[h, w, in, out]``, is this
-    ``[h, w, out, in]`` kernel. The full transposed output is cropped by the
-    forward conv's SAME pads, so a SAME output is ``stride`` times the
-    input; ``conv_transpose2d`` flips the taps as the gradient does."""
-    if padding != "SAME":
-        raise ValueError(f"padding {padding!r}: only 'SAME' is ported")
+    ``[h, w, out, in]`` kernel; ``conv_transpose2d`` flips the taps as the
+    gradient does. Its full output, ``(n - 1) * s + k`` a dim, is cut as
+    ``jax.lax.conv_transpose`` cuts it: zero-padded at the end to ``n * s``
+    where ``k < s``, then kept whole by VALID and cropped by the forward
+    conv's SAME pads to ``n * s`` by SAME. ``compute_dtype`` as
+    ``conv2d``'s."""
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(f"padding {padding!r}: use 'SAME' or 'VALID'")
     k, b = params["kernel"], params["bias"]
+    x, k, scope = round_operands(x, k, compute_dtype)
     kh, kw = k.shape[0], k.shape[1]
-    H, W = x.shape[1] * stride[0], x.shape[2] * stride[1]
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1),
-                           stride=stride)            # [B, out, H', W']
-    ph = same_pads(H, kh, stride[0])[0]
-    pw = same_pads(W, kw, stride[1])[0]
-    y = y[:, :, ph:ph + H, pw:pw + W]
+    with scope:
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1),
+                               stride=stride)        # [B, out, H', W']
+    if kh < stride[0] or kw < stride[1]:
+        y = F.pad(y, (0, max(stride[1] - kw, 0), 0, max(stride[0] - kh, 0)))
+    if padding == "SAME":
+        H, W = x.shape[1] * stride[0], x.shape[2] * stride[1]
+        ph = same_pads(H, kh, stride[0])[0]
+        pw = same_pads(W, kw, stride[1])[0]
+        y = y[:, :, ph:ph + H, pw:pw + W]
     return y.permute(0, 2, 3, 1) + b
