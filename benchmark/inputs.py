@@ -1,0 +1,123 @@
+"""Everything a run feeds the program, made from ``--seed`` on the device.
+
+Weights: one uniform draw from a ``torch.Generator`` on the run's device,
+cut into the Wave-U-Net's leaves (``down_i``, ``bottleneck``,
+``interp_i``, ``up_i``, ``out_<source>``; TF layouts) and scaled per leaf:
+Glorot-uniform kernels, biases uniform in +-0.05 (nonzero, so that a lost
+bias shows), interpolation weights uniform in +-sqrt(3 / C).
+
+Audio: stereo float32 "songs" that sound like something: a few partials
+(log-uniform 55-3,520 Hz) under slow amplitude swells, panned, over noise,
+scaled under 0.9 of full scale. A mix's lengths are fixed by its traffic
+file; the seed chooses the audio and the order.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from benchmark.reference import shapes
+
+
+def leaf_shapes(arch: Mapping) -> Dict[str, Dict[str, tuple]]:
+    """{layer: {leaf: shape}} of the Wave-U-Net's parameters."""
+    L, f0 = arch["num_layers"], arch["num_initial_filters"]
+    C = 1 if arch["mono_downmix"] else 2
+    out: Dict[str, Dict[str, tuple]] = {}
+
+    def conv(name, k, cin, cout):
+        out[name] = {"kernel": (k, cin, cout), "bias": (cout,)}
+
+    cin = C
+    for i in range(L):
+        conv(f"down_{i}", arch["filter_size"], cin, f0 * (i + 1))
+        cin = f0 * (i + 1)
+    conv("bottleneck", arch["filter_size"], cin, f0 * (L + 1))
+    cur = f0 * (L + 1)
+    for i in range(L):
+        if arch["upsampling"] == "learned":
+            out[f"interp_{i}"] = {"weights": (cur,)}
+        skip = f0 * (L - i)
+        conv(f"up_{i}", arch["merge_filter_size"], skip + cur, skip)
+        cur = skip
+    names = shapes.source_names(arch)
+    n_out = len(names) - (1 if arch["output_type"] == "difference" else 0)
+    for name in names[:n_out]:
+        conv(f"out_{name}", arch["output_filter_size"], cur + C, C)
+    return out
+
+
+def _limit(leaf: str, shape: tuple) -> float:
+    if leaf == "kernel":
+        k, cin, cout = shape
+        return math.sqrt(6.0 / (k * cin + k * cout))
+    if leaf == "bias":
+        return 0.05
+    return math.sqrt(3.0 / shape[0])
+
+
+def weights(arch: Mapping, seed: int, device: torch.device
+            ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The seeded weights, made on ``device`` in one draw."""
+    layout = leaf_shapes(arch)
+    sizes = [math.prod(s) for leaves in layout.values()
+             for s in leaves.values()]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand(sum(sizes), generator=gen, device=device) * 2 - 1
+    parts = iter(torch.split(u, sizes))
+    return {layer: {leaf: next(parts).view(shape) * _limit(leaf, shape)
+                    for leaf, shape in leaves.items()}
+            for layer, leaves in layout.items()}
+
+
+def audio(gen: torch.Generator, n: int, sr: int, device: torch.device,
+          partials: int = 6) -> torch.Tensor:
+    """[n, 2] float32 audio on ``device``."""
+    r = torch.rand((partials, 6), generator=gen, device=device,
+                   dtype=torch.float64)
+    f = 55.0 * 2.0 ** (6.0 * r[:, 0])           # Hz
+    amp = 0.05 + 0.25 * r[:, 1]
+    pan = r[:, 2]
+    swell = 0.05 + 0.5 * r[:, 3]                # Hz
+    ph = 2 * math.pi * r[:, 4:6]
+    t = torch.arange(n, device=device, dtype=torch.float64) / sr
+    x = 0.02 * torch.randn((n, 2), generator=gen, device=device,
+                           dtype=torch.float64)
+    for k in range(partials):
+        s = torch.sin(2 * math.pi * f[k] * t + ph[k, 0]) * (
+            0.6 + 0.4 * torch.sin(2 * math.pi * swell[k] * t + ph[k, 1]))
+        x[:, 0] += amp[k] * pan[k] * s
+        x[:, 1] += amp[k] * (1 - pan[k]) * s
+    return (x * (0.9 / max(1.0, float(x.abs().max())))).to(torch.float32)
+
+
+def lengths_s(spec: Mapping) -> List[float]:
+    """A mix's request lengths in seconds: ``count`` values from ``min`` to
+    ``max``, evenly spaced (``linear``) or evenly in the logarithm
+    (``log``), the same for every seed."""
+    lo, hi, n = spec["min"], spec["max"], spec["count"]
+    if n == 1:
+        return [float(hi)]
+    if spec["spacing"] == "linear":
+        return [lo + (hi - lo) * i / (n - 1) for i in range(n)]
+    return [lo * (hi / lo) ** (i / (n - 1)) for i in range(n)]
+
+
+def songs(lengths: Sequence[float], sr: int, seed: int,
+          device: torch.device) -> List[np.ndarray]:
+    """One seeded [frames, 2] float32 host array a length: made on the
+    device as one signal and cut."""
+    gen = torch.Generator(device=device).manual_seed(seed ^ 0x5EED)
+    n = [int(round(s * sr)) for s in lengths]
+    x = audio(gen, sum(n), sr, device).cpu().numpy()
+    return [np.ascontiguousarray(x[a:a + k])
+            for a, k in zip(np.cumsum([0] + n[:-1]), n)]
+
+
+def order(n: int, seed: int) -> List[int]:
+    """The seeded order in which a pool of ``n`` requests cycles."""
+    return [int(i) for i in np.random.default_rng(seed).permutation(n)]
