@@ -1229,36 +1229,26 @@ def im2col_row(conv1d_im2col, conv_row, x, w, b, w_lib, y, torch):
 
 
 def request_breakdown(sep, audio, sr, torch):
-    """One separate() request: its wall time beside the device time of each
-    chunk (CUDA events around each chunk's framing and forward, or its
-    graph's replay with the copies into the graph's static buffers). The
-    rest of the wall time is host work, copies and launch gaps."""
-    chunks = []
-    run_chunk = sep._run_chunk
+    """One separate() request under a CPU profiler, which switches on the
+    program's spans (``waveunet_tpu_torch/tracing.py``): its wall time, the
+    host's time in ``separate`` outside ``separate.wait``, the wait on the
+    card, each span's total and the engine's counters."""
+    from torch.profiler import ProfilerActivity, profile
 
-    def timed(mode, inp, pos):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = run_chunk(mode, inp, pos)
-        end.record()
-        chunks.append((int(pos.shape[0]), start, end))
-        return out
+    from waveunet_tpu_torch import tracing
 
-    sep._run_chunk = timed
-    try:
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
         t0 = time.perf_counter()
         sep.separate(audio, sr)
         wall_ms = 1e3 * (time.perf_counter() - t0)
-        torch.cuda.synchronize()
-    finally:
-        del sep._run_chunk  # back to the class's method
-    chunk_ms = [s.elapsed_time(e) for _, s, e in chunks]
-    return {"seconds": audio.shape[0] / sr,
-            "chunks": [k for k, _, _ in chunks], "chunk_ms": chunk_ms,
-            "device_ms": sum(chunk_ms), "wall_ms": wall_ms,
-            "device_idle_share": 1.0 - sum(chunk_ms) / wall_ms}
+    rec = tracing.record()
+    span_ms = {k: 1e3 * t for k, (_, t, _) in rec["spans"].items()}
+    wait_ms = span_ms["separate.wait"]  # each chunk's event, on the card
+    return {"seconds": audio.shape[0] / sr, "wall_ms": wall_ms,
+            "host_ms": span_ms["separate"] - wait_ms, "wait_ms": wait_ms,
+            "span_ms": span_ms, "counters": rec["counters"]}
 
 
 def sweep_check(get_config, model, Separator, conv1d_fused, interp, kernels,
@@ -1403,8 +1393,8 @@ def graphs_check(sep, requests, sr, kernels, np, torch):
     """precompile() on the served full_44KHz engine, then the three
     requests again through its CUDA graphs and pinned copies: identical bit
     for bit to the eager run, each chunk a replay, the kernels' launches
-    counted from the replays; walls, device time and idle share beside the
-    eager requests'."""
+    counted from the replays; walls, host time and the wait on the card
+    beside the eager requests' (``request_breakdown``)."""
     eager = [sep.separate(a, sr) for a in requests]
     eager_bd = [request_breakdown(sep, a, sr, torch) for a in requests]
     t0 = time.perf_counter()
@@ -1422,7 +1412,7 @@ def graphs_check(sep, requests, sr, kernels, np, torch):
                if g.replays}
     want = {name: sum(g.replays * g.launches[name] for g in graphs.values())
             for name in counted}
-    n_chunks = sum(len(r["chunks"]) for r in eager_bd)
+    n_chunks = sum(r["counters"]["separate.chunks"] for r in eager_bd)
     same = all(np.array_equal(e[k], g[k]) for e, g in zip(eager, graphed)
                for k in e)
     walls = []
@@ -1467,10 +1457,9 @@ def graphs_check(sep, requests, sr, kernels, np, torch):
            "eager": eager_bd, "graphed": graph_bd}
     for e, g in zip(eager_bd, graph_bd):
         print(f"request {e['seconds']:.1f} s: eager wall {e['wall_ms']:.2f} "
-              f"ms, device {e['device_ms']:.2f} ms, idle "
-              f"{e['device_idle_share']:.3f}; graphed wall "
-              f"{g['wall_ms']:.2f} ms, device {g['device_ms']:.2f} ms, idle "
-              f"{g['device_idle_share']:.3f}", flush=True)
+              f"ms, host {e['host_ms']:.2f} ms, wait {e['wait_ms']:.2f} ms; "
+              f"graphed wall {g['wall_ms']:.2f} ms, host {g['host_ms']:.2f} "
+              f"ms, wait {g['wait_ms']:.2f} ms", flush=True)
     print(f"graphed: {n_graphs} graphs captured in {capture_s:.3f} s; "
           f"{audio_s:.1f} audio-s in {sum(walls):.4f} s (median walls): "
           f"{audio_s / sum(walls):.1f} audio-s/s; replays {replays}; "
@@ -1482,6 +1471,8 @@ def graphs_check(sep, requests, sr, kernels, np, torch):
              f"chunks and launched {counted}, not {want}")
     if counted["conv1d_lrelu"] == 0 or counted["learned_interp"] == 0:
         fail("the graphed requests launched no conv or interp kernel")
+    if any(r["counters"].get("separate.eager_chunks") for r in graph_bd):
+        fail("a graphed request ran a chunk eagerly")
     return row
 
 

@@ -243,11 +243,14 @@ def test_warmup_cli_needs_the_card(cli_env, capsys):
     assert "CUDA graphs" in capsys.readouterr().err
 
 
-def test_profile_cli(cli_env, tmp_path):
+def test_profile_cli(cli_env, tmp_path, capsys):
     run("profile", "baseline", *cli_env["args"],
         f"checkpoint={cli_env['best']}", f"output_path={tmp_path}")
     trace = tmp_path / "separate_trace.json"
     assert trace.exists() and trace.stat().st_size > 0
+    out = capsys.readouterr().out
+    assert "span separate.stitch:" in out
+    assert "counter separate.windows:" in out
 
 
 def test_prepare_data_cli(cli_env, tmp_path, capsys):

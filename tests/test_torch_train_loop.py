@@ -283,14 +283,10 @@ def test_latest_and_pruning_ignore_partial_directories(tmp_path):
 
 
 def test_metric_log_and_profiler_trace(tmp_path):
-    from waveunet_tpu_torch.train.metrics import MetricLogger, profiler_trace
+    from waveunet_tpu_torch.train.metrics import MetricLogger
 
     log = MetricLogger(str(tmp_path), "m", use_tensorboard=False)
     log.log(3, sep_loss=torch.tensor(0.5), steps_per_sec=2)
     log.close()
     rec = json.loads(open(tmp_path / "m" / "metrics.jsonl").read())
     assert rec["step"] == 3 and rec["sep_loss"] == 0.5 and "time" in rec
-    with profiler_trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    (trace,) = os.listdir(tmp_path / "trace")
-    assert json.load(open(tmp_path / "trace" / trace))["traceEvents"]

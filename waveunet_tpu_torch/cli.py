@@ -425,10 +425,13 @@ def _test_song(cfg, seconds: float = 30.0) -> np.ndarray:
 
 def cmd_profile(args, device):
     """A ``torch.profiler`` trace of one 30 s separation (after a warm-up
-    one), written as a Chrome trace into ``output_path``."""
+    one), written as a Chrome trace into ``output_path``; then the
+    program's spans (count, total and self ms) and counters of that
+    separation (``tracing.py``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from waveunet_tpu_torch import tracing
     from waveunet_tpu_torch.infer.engine import Separator
 
     cfg_frags, opts = _split_args(args)
@@ -446,11 +449,18 @@ def cmd_profile(args, device):
         torch.cuda.synchronize(dev)
     out_dir = opts.get("output_path", os.path.join(cfg.log_dir, "profile"))
     os.makedirs(out_dir, exist_ok=True)
+    tracing.reset()
     with profile(activities=activities) as prof:
         sep.separate(song, cfg.expected_sr)
     path = os.path.join(out_dir, "separate_trace.json")
     prof.export_chrome_trace(path)
     print(f"trace written to {path} (chrome://tracing or Perfetto)")
+    rec = tracing.record()
+    for name, (n, total, own) in sorted(rec["spans"].items()):
+        print(f"  span {name}: {n} x, total {1e3 * total:.3f} ms, self "
+              f"{1e3 * own:.3f} ms")
+    for name, n in sorted(rec["counters"].items()):
+        print(f"  counter {name}: {n}")
 
 
 def cmd_warmup(args, device):

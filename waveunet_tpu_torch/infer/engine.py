@@ -53,6 +53,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from waveunet_tpu_torch import tracing
 from waveunet_tpu_torch.config import Config
 from waveunet_tpu_torch.device import DeviceLike, resolve_device
 from waveunet_tpu_torch.infer.wire import (INT16_NONFINITE, dequantize,
@@ -176,6 +177,7 @@ class Separator:
         self._static_song: Optional[torch.Tensor] = None
         self._host_bufs: Dict[str, torch.Tensor] = {}
         self._copy_stream = None
+        self._requests = 0  # the sequence number of the last separate()
 
     # -- the chunk program ---------------------------------------------------
     def _frame(self, song: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -200,6 +202,7 @@ class Separator:
         static: copy them out before the next replay."""
         g = self._graphs.get((mode, int(pos.shape[0])))
         if g is None or (mode == "song" and inp is not self._static_song):
+            tracing.count("separate.eager_chunks")
             return self._chunk_fwd(self.params, inp, pos)
         static_in, static_pos = g.inputs
         if static_in is not inp:
@@ -406,32 +409,35 @@ class Separator:
                  mix_sr: int) -> Dict[str, np.ndarray]:
         """Separate (n_frames, n_channels) audio; returns sources at the
         model's ``expected_sr`` and channel count."""
-        cfg = self.cfg
-        if mix_audio.ndim != 2:
-            raise ValueError(f"expected (frames, channels) audio, got shape "
-                             f"{mix_audio.shape}")
-        if cfg.mono_downmix:
-            mix_audio = np.mean(mix_audio, axis=1, keepdims=True)
-        elif mix_audio.shape[1] == 1:
-            mix_audio = np.tile(mix_audio, [1, 2])
-        mix_audio = resample(mix_audio, mix_sr, cfg.expected_sr)
+        self._requests += 1
+        with tracing.span("separate", request=self._requests):
+            cfg = self.cfg
+            if mix_audio.ndim != 2:
+                raise ValueError(f"expected (frames, channels) audio, got "
+                                 f"shape {mix_audio.shape}")
+            if cfg.mono_downmix:
+                mix_audio = np.mean(mix_audio, axis=1, keepdims=True)
+            elif mix_audio.shape[1] == 1:
+                mix_audio = np.tile(mix_audio, [1, 2])
+            mix_audio = resample(mix_audio, mix_sr, cfg.expected_sr)
 
-        # Zero-pad short songs up to one full network input.
-        extra_pad = max(0, self.in_len - mix_audio.shape[0])
-        if extra_pad:
-            mix_audio = np.pad(mix_audio, [(0, extra_pad), (0, 0)])
-        n_total = mix_audio.shape[0]
-        positions = window_positions(n_total, self.out_len)
-        preds = self._run_batched(mix_audio, positions, n_total)
-        if extra_pad:
-            preds = {k: v[:-extra_pad] for k, v in preds.items()}
-            mix_audio = mix_audio[:-extra_pad]
+            # Zero-pad short songs up to one full network input.
+            extra_pad = max(0, self.in_len - mix_audio.shape[0])
+            if extra_pad:
+                mix_audio = np.pad(mix_audio, [(0, extra_pad), (0, 0)])
+            n_total = mix_audio.shape[0]
+            positions = window_positions(n_total, self.out_len)
+            preds = self._run_batched(mix_audio, positions, n_total)
+            if extra_pad:
+                preds = {k: v[:-extra_pad] for k, v in preds.items()}
+                mix_audio = mix_audio[:-extra_pad]
 
-        if self._host_reconstruct_last:
-            acc = sum(preds[s] for s in cfg.source_names[:-1])
-            preds[cfg.source_names[-1]] = np.clip(
-                mix_audio - acc, -1.0, 1.0).astype(np.float32)
-        return preds
+            if self._host_reconstruct_last:
+                with tracing.span("separate.difference"):
+                    acc = sum(preds[s] for s in cfg.source_names[:-1])
+                    preds[cfg.source_names[-1]] = np.clip(
+                        mix_audio - acc, -1.0, 1.0).astype(np.float32)
+            return preds
 
     def _host_buffer(self, key: str, numel: int,
                      dtype: torch.dtype) -> torch.Tensor:
@@ -471,6 +477,9 @@ class Separator:
         dev, cuda = self.device, self.device.type == "cuda"
         n_win = positions.shape[0]
         sizes = self._chunk_sizes(n_win)
+        tracing.count("separate.windows", n_win)
+        tracing.count("separate.window_slots", sum(sizes))
+        tracing.count("separate.chunks", len(sizes))
         offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
         # Padded slots repeat the last window; their results are dropped.
         pos_pad = np.full((int(offsets[-1]),), positions[-1], np.int64)
@@ -480,8 +489,9 @@ class Separator:
             self._h2d_mode is None and len(sizes) >= 2
             and 3 * (self.in_len - self.out_len) <= self.batch * self.out_len))
         # room for the last slab of a chunk, past the song's end, as zeros
-        song = self._stage(mix, t + (self.batch - 1) * self.out_len
-                           if use_slabs else t)
+        with tracing.span("separate.stage"):
+            song = self._stage(mix, t + (self.batch - 1) * self.out_len
+                               if use_slabs else t)
         starts = pos_pad[offsets[:-1]]
         if use_slabs:  # positions relative to their chunk's slab
             pos_pad = pos_pad - np.repeat(starts, sizes)
@@ -502,38 +512,42 @@ class Separator:
 
         results = []  # per chunk: ({name: host [k, out_len, C]}, event)
         for ci, k in enumerate(sizes):
-            pos = pos_dev[offsets[ci]:offsets[ci + 1]]
-            if use_slabs:
-                slab_host = song[int(starts[ci]):int(starts[ci])
-                                 + (k - 1) * self.out_len + self.in_len]
-                if cuda:  # the copy of chunk i+1 overlaps chunk i's forward
-                    with torch.cuda.stream(self._copy_stream):
-                        inp = slab_host.to(dev, non_blocking=True)
-                    stream.wait_stream(self._copy_stream)
-                    inp.record_stream(stream)
+            with tracing.span("separate.chunk"):
+                pos = pos_dev[offsets[ci]:offsets[ci + 1]]
+                if use_slabs:
+                    slab_host = song[int(starts[ci]):int(starts[ci])
+                                     + (k - 1) * self.out_len + self.in_len]
+                    if cuda:  # chunk i+1's copy overlaps chunk i's forward
+                        with torch.cuda.stream(self._copy_stream):
+                            inp = slab_host.to(dev, non_blocking=True)
+                        stream.wait_stream(self._copy_stream)
+                        inp.record_stream(stream)
+                    else:
+                        inp = slab_host
+                    res = self._run_chunk("slabs", inp, pos)
+                elif self.mesh is not None:  # this rank's rows, gathered
+                    r, b = self.mesh.rank, k // self.mesh.size
+                    res = self._run_chunk("song", song_dev,
+                                          pos[r * b:(r + 1) * b])
+                    res = {k: gather_rows(v, self.mesh)
+                           for k, v in res.items()}
                 else:
-                    inp = slab_host
-                res = self._run_chunk("slabs", inp, pos)
-            elif self.mesh is not None:  # this rank's rows, gathered
-                r, b = self.mesh.rank, k // self.mesh.size
-                res = self._run_chunk("song", song_dev,
-                                      pos[r * b:(r + 1) * b])
-                res = {k: gather_rows(v, self.mesh) for k, v in res.items()}
-            else:
-                res = self._run_chunk("song", song_dev, pos)
-            host = {}
-            for name, v in res.items():
-                off = int(offsets[ci]) * self.out_len * v.shape[2]
-                h = self._host_buffer(f"out/{name}", int(offsets[-1])
-                                      * self.out_len * v.shape[2], v.dtype)
-                h = h[off:off + v.numel()].view(v.shape)
-                h.copy_(v, non_blocking=True)  # stream-ordered, before the
-                host[name] = h                 # next replay overwrites v
-            event = None
-            if cuda:
-                event = torch.cuda.Event()
-                event.record(stream)
-            results.append((host, event))
+                    res = self._run_chunk("song", song_dev, pos)
+                host = {}
+                for name, v in res.items():
+                    off = int(offsets[ci]) * self.out_len * v.shape[2]
+                    h = self._host_buffer(
+                        f"out/{name}",
+                        int(offsets[-1]) * self.out_len * v.shape[2], v.dtype)
+                    h = h[off:off + v.numel()].view(v.shape)
+                    # stream-ordered, before the next replay overwrites v
+                    h.copy_(v, non_blocking=True)
+                    host[name] = h
+                event = None
+                if cuda:
+                    event = torch.cuda.Event()
+                    event.record(stream)
+                results.append((host, event))
 
         out = {name: np.empty((n_total, self.cfg.num_channels),
                               np.int16 if self._wire16 else np.float32)
@@ -541,15 +555,19 @@ class Separator:
         wi = 0
         for host, event in results:  # stitch each chunk once it is back
             if event is not None:
-                event.synchronize()
-            wins = {name: h.numpy() for name, h in host.items()}
-            for b in range(min(len(next(iter(wins.values()))), n_win - wi)):
-                p = int(positions[wi])
-                for name, w in wins.items():
-                    out[name][p:p + self.out_len] = w[b]  # later writes win
-                wi += 1
+                with tracing.span("separate.wait"):
+                    event.synchronize()
+            with tracing.span("separate.stitch"):
+                wins = {name: h.numpy() for name, h in host.items()}
+                n = min(len(next(iter(wins.values()))), n_win - wi)
+                for b in range(n):
+                    p = int(positions[wi])
+                    for name, w in wins.items():  # later writes win
+                        out[name][p:p + self.out_len] = w[b]
+                    wi += 1
         if self._wire16:
-            return {name: from_wire_np(buf) for name, buf in out.items()}
+            with tracing.span("separate.stitch"):
+                return {name: from_wire_np(buf) for name, buf in out.items()}
         return out
 
 

@@ -22,6 +22,7 @@ from scipy.signal import upfirdn
 
 from waveunet_tpu_torch.device import DeviceLike, resolve_device
 from waveunet_tpu_torch.ops.conv import tf32_scope
+from waveunet_tpu_torch.tracing import spanned
 
 
 _ZEROS = 64          # zero crossings per side (resampy kaiser_best: 64)
@@ -64,6 +65,7 @@ def _check_rates(orig_sr: int, new_sr: int) -> None:
                          f"{orig_sr} -> {new_sr}")
 
 
+@spanned("resample")
 def resample(audio: np.ndarray, orig_sr: int, new_sr: int) -> np.ndarray:
     """Resample (frames[, channels]) audio; output length ceil(n*new/orig)."""
     _check_rates(orig_sr, new_sr)
@@ -86,6 +88,7 @@ def resample(audio: np.ndarray, orig_sr: int, new_sr: int) -> np.ndarray:
     return out[:, 0] if squeeze else out
 
 
+@spanned("resample")
 def resample_device(audio, orig_sr: int, new_sr: int,
                     device: DeviceLike = None) -> torch.Tensor:
     """Resample (frames[, channels]) audio on the device; the same taps,

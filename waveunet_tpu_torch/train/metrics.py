@@ -1,19 +1,17 @@
-"""Training observability: a JSONL metric log, TensorBoard when present,
-and a ``torch.profiler`` trace.
+"""Training observability: a JSONL metric log and TensorBoard when present.
 
 Counterpart of ``waveunet_tpu/train/metrics.py``: the same append-only
 ``metrics.jsonl`` under ``<log_dir>/<experiment_id>/`` with the same record
 keys (``step``, ``time`` and the scalars), mirrored to tensorboardX when it
-is installed.
+is installed. A ``torch.profiler`` trace of the port's work is the
+``profile`` command's (``cli.py``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import time
-from typing import Iterator
 
 
 class MetricLogger:
@@ -44,21 +42,3 @@ class MetricLogger:
         self._f.close()
         if self._tb is not None:
             self._tb.close()
-
-
-@contextlib.contextmanager
-def profiler_trace(log_dir: str) -> Iterator[None]:
-    """Trace the block with ``torch.profiler`` (the CPU and, where there is
-    one, the CUDA device) and write it to ``log_dir`` as a Chrome trace;
-    the counterpart of the JAX package's start/stop profiler trace."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield
-    prof.export_chrome_trace(
-        os.path.join(log_dir, f"trace_{int(time.time())}.json"))
