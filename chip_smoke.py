@@ -105,10 +105,17 @@ wall seconds, each under a watchdog:
   15. cli: predict and evaluate (random_init=1, max_tracks=1, tpu_bss=1)
      through cli.main, their WAVs and JSON equal byte for byte to the
      library calls';
-  16. resample: resample_device on a 60 s stereo song on the card against
-     the host resample (2e-3) for 22050 -> 44100, 44100 -> 22050,
-     48000 -> 44100 and 44100 -> 8192, its ms beside the host's, and its
-     peak device memory on a 4-minute song at 48000 -> 44100;
+  16. resample: the resample kernel (resample_device on the card) on a 60
+     s stereo song against the host resample, within one fp32 ulp, from
+     fp32 and from float64 audio, for 22050 -> 44100, 44100 -> 22050,
+     48000 -> 44100 and 44100 -> 8192, and on a 240 s song at 44100 ->
+     22050, its ms beside its bound (the card's fp64 peak, and its CUDA
+     cores'), the plain version's on the card and the host's; its peak
+     device memory on a 4-minute song at 48000 -> 44100; M6 requests of a
+     44.1 kHz song, float32 and float64, through Separator.separate's card
+     route (one launch, one separate.device_resample each) against the
+     host's route (resampled on the host, served at the model's rate),
+     stems within 1e-6;
   17. dist: data parallelism (waveunet_tpu_torch/parallel/) at full_44KHz
      full width (12 layers, 24 filters, training window 16,384, batch 16,
      infer_batch 16, seeded weights) and U7 at full width (batch 4). (a) A
@@ -158,7 +165,7 @@ LIMITS = {"nvidia-smi": 30, "build": 400, "kernels": 120, "timing": 180,
           "im2col": 240, "serve": 420, "forward": 300, "presets": 240,
           "sweep": 240, "graphs": 240, "spectro": 300, "stream": 240,
           "m6": 120, "bench": 420, "train": 150, "eval": 420, "cli": 180,
-          "resample": 120, "dist": 300}
+          "resample": 300, "dist": 300}
 
 # Peaks of one H100 SXM (NVIDIA data sheet) for the bounds: dense TF32 on
 # the tensor cores (the conv kernel computes in 3xTF32: three TF32 products
@@ -978,7 +985,10 @@ def main() -> int:
         path_launches["cli"] = cli_row["launches"]
 
     with phase("resample"):
-        resample_row = resample_check(np, torch, dev)
+        resample_row = resample_check(get_config, model, kernels, np, torch,
+                                      dev)
+        # the served float32 M6 request's own launches, from a reset
+        path_launches["resample"] = resample_row["served"]["launches"]
 
     with phase("dist"):
         dist_row = dist_check(get_config, model, kernels, requests, smi, np,
@@ -1040,6 +1050,7 @@ def main() -> int:
                                 for p, c in path_launches.items()},
               edge_shapes=im2col_edge_rows, tool_shapes=tool_rows,
               tool_sums=tool_sum),
+        resample_entry(resample_row, path_launches),
     ]
     print(f"chip_smoke total: {time.perf_counter() - t_start:.3f} s "
           f"(after interpreter start)", flush=True)
@@ -1305,7 +1316,7 @@ def sweep_check(get_config, model, Separator, conv1d_fused, interp, kernels,
         want = {k: 3 * v for k, v in graph.launches.items()}
         per_chunk = {"conv1d_lrelu": 2 * cfg.num_layers + 1,
                      "learned_interp": cfg.num_layers,
-                     "conv1d_lrelu_im2col": 0}
+                     "conv1d_lrelu_im2col": 0, "resample_poly": 0}
         per_graph = {k: v * len(sizes) for k, v in per_chunk.items()}
         eager_ms = time_cuda(lambda: eager_fn(sep.params, song_dev), torch)
         graph_ms = time_cuda(lambda: graph_fn(sep.params, song_dev), torch)
@@ -2600,7 +2611,7 @@ def eval_check(get_config, model, conv1d_fused, interp, kernels, np, torch):
         n_chunks = chunks(2 * sr) + EVAL_SONGS * chunks(EVAL_SONG_S * sr)
         want = {"conv1d_lrelu": (2 * cfg.num_layers + 1) * n_chunks,
                 "learned_interp": cfg.num_layers * n_chunks,
-                "conv1d_lrelu_im2col": 0}
+                "conv1d_lrelu_im2col": 0, "resample_poly": 0}
         runs = {}
         for name, tpu_bss in (("host", False), ("fp32", True),
                               ("f64", "f64")):
@@ -2806,44 +2817,90 @@ def cli_check(get_config, kernels, eval_row, np, torch):
 RESAMPLE_PAIRS = ((22050, 44100), (44100, 22050), (48000, 44100),
                   (44100, 8192))
 RESAMPLE_SONG_S = 60     # the checked song; the memory probe's is 4 min
-RESAMPLE_ATOL = 2e-3     # fp32 device sums vs the fp64 host
-                         # (tests/test_resample.py:53)
+RESAMPLE_LONG = (44100, 22050, 240)  # M6's pair on a song of MUSDB's mean
+                                     # length (about 4 min)
+RESAMPLE_MAX_ULP = 1     # the kernel's float64 sums against the host's, each
+                         # rounded to fp32 once, in another order
+RESAMPLE_SERVED_ATOL = 1e-6  # stems of the card's route against the host's:
+                             # mixes within an ulp, through the same network
+PEAK_FP64_FLOPS = 67e12  # the card's fp64 peak, on the tensor cores (DMMA)
+PEAK_FP64_CORES_FLOPS = 34e12  # fp64 on the CUDA cores (the kernel's fma)
 
 
-def resample_check(np, torch, dev):
-    """Phase resample: resample_device on a 60 s stereo song on the card
-    against the host resample, per rate pair, with each one's ms (CUDA
-    events) beside the host's (host clock); and the peak device memory of
-    a 4-minute stereo song at 48,000 -> 44,100."""
-    from waveunet_tpu_torch.ops.resample import (_resample_plan, resample,
-                                                 resample_device)
+def max_ulp(a, b, np) -> int:
+    """The largest distance in fp32 units in the last place between two
+    float32 arrays (signed zeros equal, as numpy.testing counts it)."""
+    ai, bi = (x.view(np.int32).astype(np.int64) for x in (a, b))
+    ai, bi = (np.where(x < 0, -(2 ** 31) - x, x) for x in (ai, bi))
+    return int(np.abs(ai - bi).max()) if ai.size else 0
+
+
+def resample_check(get_config, model, kernels, np, torch, dev):
+    """Phase resample: the kernel (resample_device on a CUDA tensor)
+    against the host resample on a 60 s stereo song at each rate pair, and
+    on a 240 s song at 44,100 -> 22,050, within RESAMPLE_MAX_ULP, from the
+    fp32 song and from the float64 one it was rounded from; the kernel's
+    ms (CUDA events, fp32 input) beside its bound at the card's fp64 peak
+    and at its CUDA cores', the plain version's on the card and the host's
+    (host clock); the peak device memory of a 4-minute song at 48,000 ->
+    44,100; then M6 requests of a 44.1 kHz song through the card's route
+    of Separator.separate against the host's route."""
+    from waveunet_tpu_torch.ops.kernels import resample_poly
+    from waveunet_tpu_torch.ops.resample import (_resample_plan,
+                                                 polyphase_bank, resample,
+                                                 resample_device,
+                                                 resample_polyphase)
 
     rng = np.random.default_rng(SEED + 4)
     rows = []
-    for orig, new in RESAMPLE_PAIRS:
-        n = RESAMPLE_SONG_S * orig
+    for orig, new, song_s in (*((o, n, RESAMPLE_SONG_S)
+                                for o, n in RESAMPLE_PAIRS), RESAMPLE_LONG):
+        n = song_s * orig
         t = np.arange(n) / orig
-        x = (0.3 * np.sin(2 * np.pi * 440.0 * t)[:, None]
-             + 0.1 * rng.standard_normal((n, 2))).astype(np.float32)
+        x64 = (0.3 * np.sin(2 * np.pi * 440.0 * t)[:, None]
+               + 0.1 * rng.standard_normal((n, 2)))
+        x = x64.astype(np.float32)
         t0 = time.perf_counter()
         want = resample(x, orig, new)
         host_ms = 1e3 * (time.perf_counter() - t0)
         xd = torch.from_numpy(x).to(dev)
+        before = resample_poly.launches
         got = resample_device(xd, orig, new)
         torch.cuda.synchronize()
-        err = float(np.abs(got.cpu().numpy() - want).max())
+        launched = resample_poly.launches - before
+        got = got.cpu().numpy()
+        got64 = resample_device(torch.from_numpy(x64).to(dev), orig,
+                                new).cpu().numpy()
+        ulp64 = max_ulp(got64, resample(x64, orig, new), np)
+        plain = resample_polyphase(xd, orig, new).cpu().numpy()
         p, q = _resample_plan(n, orig, new)[:2]
-        row = {"orig": orig, "new": new, "p": p, "q": q,
-               "frames_in": n, "frames_out": int(got.shape[0]),
-               "shape_ok": tuple(got.shape) == want.shape,
-               "max_abs_err": err, "tol": RESAMPLE_ATOL,
+        L = polyphase_bank(p, q)[1]
+        n_out = int(got.shape[0])
+        fmas = n_out * 2 * L / p  # every phase's taps once: sum K_phi = L
+        nbytes = 4 * 2 * (n + n_out)
+        bound, bound_by = bound_ms(2 * fmas, nbytes, PEAK_FP64_FLOPS)
+        row = {"orig": orig, "new": new, "p": p, "q": q, "taps": L,
+               "song_s": song_s, "frames_in": n, "frames_out": n_out,
+               "shape_ok": got.shape == want.shape, "launches": launched,
+               "max_ulp": max_ulp(got, want, np),
+               "max_abs_err": float(np.abs(got - want).max()),
+               "max_ulp_f64": ulp64,
+               "plain_max_ulp": max_ulp(plain, want, np),
+               "tol_ulp": RESAMPLE_MAX_ULP,
                "ms": time_cuda(lambda: resample_device(xd, orig, new), torch),
+               "bound_ms": bound, "bound_by": bound_by,
+               "bound_fp64_cores_ms": bound_ms(2 * fmas, nbytes,
+                                               PEAK_FP64_CORES_FLOPS)[0],
+               "plain_ms": time_cuda(
+                   lambda: resample_polyphase(xd, orig, new), torch,
+                   min_s=0.0),
                "host_ms": host_ms}
         rows.append(row)
         print(f"resample {json.dumps(row)}", flush=True)
-        if not (row["shape_ok"] and err <= RESAMPLE_ATOL):
-            fail(f"resample_device {orig} -> {new} on the card disagrees "
-                 f"with the host resample")
+        if not (row["shape_ok"] and launched == 1
+                and max(row["max_ulp"], ulp64) <= RESAMPLE_MAX_ULP):
+            fail(f"the resample kernel {orig} -> {new} on the card "
+                 f"disagrees with the host resample")
     n = 240 * 48000
     x = torch.from_numpy((0.1 * rng.standard_normal((n, 2))).astype(
         np.float32)).to(dev)
@@ -2859,7 +2916,103 @@ def resample_check(np, torch, dev):
     print(f"resample peak memory: {json.dumps(peak)}", flush=True)
     if not bool(torch.isfinite(y).all()):
         fail("resample_device gave non-finite values on a 4-minute song")
-    return {"pairs": rows, "peak_memory": peak}
+    served = served_resample_check(get_config, model, kernels, np, torch,
+                                   dev)
+    return {"pairs": rows, "peak_memory": peak, "served": served}
+
+
+def resample_entry(resample_row, path_launches):
+    """The kernels line's entry of the resample kernel: its ms and bounds at
+    M6's pair on a 240 s song (RESAMPLE_LONG, what a served M6 song runs),
+    its worst ulp over every pair, its launches in the served float32 M6
+    request and by path; each pair under "shapes". The port's own kernel:
+    it replaces no Pallas kernel, and no library kernel is timed."""
+    rows = resample_row["pairs"]
+    long = next(r for r in rows if (r["orig"], r["new"], r["song_s"])
+                == RESAMPLE_LONG)
+    served = resample_row["served"]
+    return {
+        "name": "resample_poly", "route": "cuda",
+        "source": "waveunet_tpu_torch/ops/kernels/csrc/resample_poly.cu",
+        "replaces": None, "launches": served["launches"]["resample_poly"],
+        "max_ulp": max(max(r["max_ulp"], r["max_ulp_f64"]) for r in rows),
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": long["ms"], "bound_ms": long["bound_ms"],
+        "bound_by": long["bound_by"],
+        "bound_fp64_cores_ms": long["bound_fp64_cores_ms"],
+        "plain_ms": long["plain_ms"], "host_ms": long["host_ms"],
+        "shapes": rows,
+        "launches_by_path": {p: c.get("resample_poly", 0)
+                             for p, c in path_launches.items()},
+    }
+
+
+def served_resample_check(get_config, model, kernels, np, torch, dev):
+    """M6 requests (full_multi_instrument at the benchmark's width and
+    window: 65,536 frames, batch 16, float32 wire) of a 60 s song at 44.1
+    kHz through Separator.separate on the card's route, as float32 and as
+    float64 (each one separate.device_resample, one kernel launch), against
+    the host's route: the song resampled on the host first, then served at
+    the model's rate (no resampling in separate). Stems within
+    RESAMPLE_SERVED_ATOL, the walls (the host's with its resampling), and
+    the float32 request's kernel launches, counted from a reset."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from waveunet_tpu_torch import tracing
+    from waveunet_tpu_torch.bench import make_bench_song
+    from waveunet_tpu_torch.infer.engine import Separator
+    from waveunet_tpu_torch.ops.resample import resample
+
+    cfg = get_config("full_multi_instrument", infer_num_frames=65536,
+                     infer_batch=16)
+    sr = cfg.expected_sr
+    sep = Separator(cfg, model.init_waveunet(
+        torch.Generator().manual_seed(SEED), cfg, dev))
+    song = make_bench_song(44100, 60.0)
+    # warm: the kernel library, the taps, the buffers of both input types
+    for warm, rate in ((song[:44100], 44100),
+                       (song[:44100].astype(np.float64), 44100),
+                       (resample(song[:44100], 44100, sr), sr)):
+        sep.separate(warm, rate)
+    routes = (("card", lambda: sep.separate(song, 44100)),
+              ("card_f64",
+               lambda: sep.separate(song.astype(np.float64), 44100)),
+              ("host", lambda: sep.separate(resample(song, 44100, sr), sr)))
+    walls, outs, recs, launches = {}, {}, {}, None
+    for route, call in routes:
+        torch.cuda.synchronize()
+        tracing.reset()
+        kernels.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU]):
+            t0 = time.perf_counter()
+            outs[route] = call()
+            walls[route] = 1e3 * (time.perf_counter() - t0)
+        counts = kernels.launch_counts()
+        launches = counts if route == "card" else launches
+        rec = tracing.record()
+        recs[route] = {
+            "device_resample": rec["counters"].get(
+                "separate.device_resample", 0),
+            "resample_launches": counts["resample_poly"],
+            "resample_ms": 1e3 * rec["spans"].get("resample", (0, 0.0))[1]}
+    tracing.reset()
+    errs = {route: max(float(np.abs(outs[route][k] - outs["host"][k]).max())
+                       for k in outs["host"])
+            for route in ("card", "card_f64")}
+    row = {"config": "full_multi_instrument", "song_s": len(song) / 44100,
+           "wall_ms": walls, "routes": recs, "max_abs_err": errs,
+           "tol": RESAMPLE_SERVED_ATOL, "launches": launches}
+    print(f"resample served {json.dumps(row)}", flush=True)
+    for route in ("card", "card_f64"):
+        if recs[route]["device_resample"] != 1 or recs[route][
+                "resample_launches"] != 1:
+            fail(f"the {route} M6 request did not resample on the card once")
+    if recs["host"]["device_resample"] != 0 or recs["host"][
+            "resample_launches"] != 0:
+        fail("the M6 request at the model's rate resampled on the card")
+    if not all(e <= RESAMPLE_SERVED_ATOL for e in errs.values()):
+        fail("the card's resampling route disagrees with the host's")
+    return row
 
 
 DIST_STEPS = 3          # steps of the fused-against-eager mesh check

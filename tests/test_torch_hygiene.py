@@ -90,7 +90,7 @@ def test_kernel_sources_include_no_pytorch_header():
 
     names = sorted(os.path.basename(s) for s in build.sources())
     assert names == ["conv1d_lrelu.cu", "conv1d_lrelu_im2col.cu",
-                     "learned_interp.cu"]
+                     "learned_interp.cu", "resample_poly.cu"]
     for src in build.sources():
         with open(src) as f:
             text = f.read()

@@ -310,12 +310,14 @@ def test_optax_state_carries_into_the_port_and_back():
     _assert_tree_close(params_to_numpy(tp), jp, "params after the carry-in")
     assert int(ts["count"]) == 2
 
-    # and back into optax for a third step
+    # and back into optax for a third step; copied (jnp.array), since
+    # jnp.asarray of these views aliases the port's tensors on the CPU, and
+    # the port's in-place step below could then race optax's dispatched one
     c, m, v = adam_state_to_numpy(ts)
     back = (optax.ScaleByAdamState(
-        count=jnp.asarray(c), mu=jax.tree_util.tree_map(jnp.asarray, m),
-        nu=jax.tree_util.tree_map(jnp.asarray, v)), optax.EmptyState())
-    jb = jax.tree_util.tree_map(jnp.asarray, params_to_numpy(tp))
+        count=jnp.array(c), mu=jax.tree_util.tree_map(jnp.array, m),
+        nu=jax.tree_util.tree_map(jnp.array, v)), optax.EmptyState())
+    jb = jax.tree_util.tree_map(jnp.array, params_to_numpy(tp))
     upd, back = update(jax.tree_util.tree_map(jnp.asarray, g3), back, jb)
     jb = optax.apply_updates(jb, upd)
     Adam(lr).update_(tp, params_from_numpy(g3, "cpu"), ts)

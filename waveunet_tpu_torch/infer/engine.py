@@ -8,6 +8,17 @@ order (later writes win), and reconstruction of the difference source.
 
 The host pipeline of ``separate``:
 
+  * a song at another rate than the model's is resampled on the card
+    when the Separator's device is CUDA: copied into a pinned host buffer
+    (float64 for a float64 song, else fp32), sent with one non-blocking
+    copy, resampled by the hand-written polyphase kernel
+    (``ops/kernels/resample_poly.py``; float64 products and sums, rounded
+    to fp32 once, as the host path computes them) and brought back with
+    one non-blocking copy into a second pinned buffer, waited for on an
+    event. The rest of ``separate`` reads that host copy, which the
+    difference source needs too. On any other device the host resamples
+    it (``ops/resample.py::resample``), and a song at the model's rate is
+    not resampled at all;
   * the context-padded song is written once into a pinned host staging
     buffer (quantised there on the int16 wire, bit for bit as the JAX
     package's native host op) and crosses to the device with non-blocking
@@ -62,6 +73,7 @@ from waveunet_tpu_torch.infer.wire import (INT16_NONFINITE, dequantize,
                                            to_wire)
 from waveunet_tpu_torch.ops import shapes
 from waveunet_tpu_torch.ops.kernels import Graph, capture
+from waveunet_tpu_torch.ops.kernels.resample_poly import resample_poly_cuda
 from waveunet_tpu_torch.ops.resample import resample
 from waveunet_tpu_torch.parallel.mesh import (barrier, check_mesh,
                                               gather_rows, put_replicated)
@@ -408,7 +420,9 @@ class Separator:
     def separate(self, mix_audio: np.ndarray,
                  mix_sr: int) -> Dict[str, np.ndarray]:
         """Separate (n_frames, n_channels) audio; returns sources at the
-        model's ``expected_sr`` and channel count."""
+        model's ``expected_sr`` and channel count. A song at another rate
+        is resampled on a CUDA device's card (``_card_resample``), on the
+        host otherwise."""
         self._requests += 1
         with tracing.span("separate", request=self._requests):
             cfg = self.cfg
@@ -419,7 +433,10 @@ class Separator:
                 mix_audio = np.mean(mix_audio, axis=1, keepdims=True)
             elif mix_audio.shape[1] == 1:
                 mix_audio = np.tile(mix_audio, [1, 2])
-            mix_audio = resample(mix_audio, mix_sr, cfg.expected_sr)
+            if self._resamples_on_card(mix_sr):
+                mix_audio = self._card_resample(mix_audio, mix_sr)
+            else:
+                mix_audio = resample(mix_audio, mix_sr, cfg.expected_sr)
 
             # Zero-pad short songs up to one full network input.
             extra_pad = max(0, self.in_len - mix_audio.shape[0])
@@ -438,6 +455,36 @@ class Separator:
                     preds[cfg.source_names[-1]] = np.clip(
                         mix_audio - acc, -1.0, 1.0).astype(np.float32)
             return preds
+
+    def _resamples_on_card(self, mix_sr: int) -> bool:
+        """Whether ``separate`` resamples a song on the card: the device
+        is CUDA, and the song comes at another rate than the model's."""
+        return (self.device.type == "cuda"
+                and mix_sr != self.cfg.expected_sr)
+
+    def _card_resample(self, mix: np.ndarray, mix_sr: int) -> np.ndarray:
+        """``mix`` at the model's rate through the kernel: a pinned copy
+        (float64 for a float64 mix, which the kernel reads as it is; fp32
+        otherwise), one H2D, the launch, one D2H into a second pinned
+        buffer and the wait on its event, all inside the ``resample`` span.
+        Returns a float32 view of that buffer, which the next request
+        overwrites."""
+        with tracing.span("resample"):
+            tracing.count("separate.device_resample")
+            n, C = mix.shape
+            dtype = (torch.float64 if mix.dtype == np.float64
+                     else torch.float32)
+            src = self._host_buffer("resample/in", n * C, dtype).view(n, C)
+            src.numpy()[:] = mix
+            y = resample_poly_cuda(src.to(self.device, non_blocking=True),
+                                   mix_sr, self.cfg.expected_sr)
+            out = self._host_buffer("resample/out", y.numel(),
+                                    torch.float32).view(y.shape)
+            out.copy_(y, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
+            return out.numpy()
 
     def _host_buffer(self, key: str, numel: int,
                      dtype: torch.dtype) -> torch.Tensor:

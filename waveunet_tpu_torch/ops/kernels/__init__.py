@@ -27,6 +27,7 @@ KERNEL_MODULES = {
     "conv1d_lrelu": "waveunet_tpu_torch.ops.kernels.conv1d_fused",
     "learned_interp": "waveunet_tpu_torch.ops.kernels.interp",
     "conv1d_lrelu_im2col": "waveunet_tpu_torch.ops.kernels.conv1d_im2col",
+    "resample_poly": "waveunet_tpu_torch.ops.kernels.resample_poly",
 }
 
 

@@ -90,6 +90,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     # x, w, y, B, n, C, context, stream
     lib.learned_interp_f32.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
     lib.learned_interp_f32.restype = i32
+    # x, bank, y, n, C, n_out, p, q, L, kmax, c, start, stream; x fp32 or
+    # float64 by the name
+    for fn in (lib.resample_poly_f32, lib.resample_poly_f64):
+        fn.argtypes = [vp, vp, vp, i64, i32, i64, i64, i64, i64, i32, i64,
+                       i64, vp]
+        fn.restype = i32
     lib.cuda_error_string.argtypes = [i32]
     lib.cuda_error_string.restype = ctypes.c_char_p
 

@@ -3,11 +3,18 @@
 A copy of ``waveunet_tpu/ops/resample.py``: a Kaiser-windowed sinc
 polyphase filter whose parameters (64 zero crossings, beta=14.77, rolloff
 .9475) mirror resampy's "kaiser_best", with exact group-delay compensation.
-The host path (``resample``) applies it with ``scipy.signal.upfirdn``; the
-JAX package may take a native C++ kernel with the same taps instead, and
-results agree to float32 rounding. The device path (``resample_device``,
-the counterpart of ``resample_jnp``) computes the same sums in fp32 with
-PyTorch convolutions in polyphase form.
+The host path (``resample``) applies it with ``scipy.signal.upfirdn`` in
+float64; the JAX package may take a native C++ kernel with the same taps
+instead, and results agree to float32 rounding. The device path
+(``resample_device``, the counterpart of ``resample_jnp``) computes the
+same sums in float64 too, from fp32 or float64 audio: on a CUDA tensor in
+the hand-written kernel ``ops/kernels/csrc/resample_poly.cu``
+(``ops/kernels/resample_poly.py``), on any other device in its plain,
+differentiable PyTorch form (``resample_polyphase``), one stride-q
+convolution a phase. Both round each sum to fp32 once, so they agree with
+the host within one fp32 ulp. ``Separator.separate`` (``infer/engine.py``)
+resamples a song at another rate on the card through the kernel when its
+device is CUDA, and with ``resample`` otherwise.
 """
 
 from __future__ import annotations
@@ -21,7 +28,6 @@ import torch
 from scipy.signal import upfirdn
 
 from waveunet_tpu_torch.device import DeviceLike, resolve_device
-from waveunet_tpu_torch.ops.conv import tf32_scope
 from waveunet_tpu_torch.tracing import spanned
 
 
@@ -88,59 +94,92 @@ def resample(audio: np.ndarray, orig_sr: int, new_sr: int) -> np.ndarray:
     return out[:, 0] if squeeze else out
 
 
+@lru_cache(maxsize=32)
+def polyphase_bank(p: int, q: int):
+    """(bank, L): every phase's sub-filter of the ``(p, q)`` filter,
+    reversed, as the rows of a ``[p, kmax]`` float64 array zero-padded on
+    the right, and L, the filter's length. Phase ``phi`` has the
+    ``(L - 1 - phi) // p + 1`` taps ``bank[phi, i] = taps[phi + (K - 1 -
+    i) * p]``: the tap for input sample ``base - K + 1 + i`` of an output
+    whose up-grid index is ``base * p + phi``."""
+    taps, _ = _kaiser_filter(p, q)
+    L = len(taps)
+    phi = np.arange(p)[:, None]
+    k = (L - 1 - phi) // p + 1
+    i = np.arange(int(k[0, 0]))[None, :]
+    idx = phi + (k - 1 - i) * p
+    bank = np.where(i < k, taps[np.clip(idx, 0, L - 1)], 0.0)
+    bank.flags.writeable = False  # shared by every caller of the cache
+    return bank, L
+
+
+def resample_polyphase(x: torch.Tensor, orig_sr: int,
+                       new_sr: int) -> torch.Tensor:
+    """The plain version of the device resampler: [n, C] audio on any
+    device to [n_out, C] float32, as ``resample`` plans it, the products
+    and sums in float64, rounded to float32 once.
+
+    Output ``m = r + p*t`` reads only the reversed sub-filter of phase
+    ``phi_r`` = (start + r)*q mod p against input samples from ``b_r + q*t
+    - (K - 1)`` up (``b_r`` = (start + r)*q // p, behind the plan's ``c``
+    zeros): one stride-q convolution a phase r, written into the output at
+    stride p. Stuffing p - 1 zeros between samples, as the JAX package's
+    input-dilated convolution does, would multiply the input by p (147 for
+    48,000 -> 44,100)."""
+    n_in, n_ch = x.shape
+    p, q, _, _, c, start, n_out = _resample_plan(n_in, orig_sr, new_sr)
+    bank_np, L = polyphase_bank(p, q)
+    phases = []  # (r, phi, K, lo, n_r)
+    for r in range(min(p, n_out)):
+        base, phi = divmod((start + r) * q, p)
+        k = (L - 1 - phi) // p + 1
+        n_r = -(-(n_out - r) // p)
+        # conv1d correlates, out[t] = sum_i g[i] x'[lo + q*t + i]; lo is
+        # lowered by c to index x itself
+        phases.append((r, phi, k, base - (k - 1) - c, n_r))
+    left = max(0, -min(ph[3] for ph in phases))
+    right = max(0, max(lo + q * (n_r - 1) + k
+                       for _, _, k, lo, n_r in phases) - n_in)
+    xp = torch.nn.functional.pad(x.to(torch.float64).t()[:, None, :],
+                                 (left, right))  # [C, 1, L]
+    bank = torch.tensor(bank_np, device=x.device)
+    out = xp.new_zeros((n_ch, -(-n_out // p) * p))
+    rows = out.view(n_ch, -1, p)  # output r + p*t at rows[:, t, r]
+    for r, phi, k, lo, n_r in phases:
+        seg = xp[..., left + lo:left + lo + q * (n_r - 1) + k]
+        rows[:, :n_r, r] = torch.nn.functional.conv1d(
+            seg, bank[phi, :k][None, None], stride=q)[:, 0]
+    return out[:, :n_out].t().to(torch.float32)
+
+
 @spanned("resample")
 def resample_device(audio, orig_sr: int, new_sr: int,
                     device: DeviceLike = None) -> torch.Tensor:
     """Resample (frames[, channels]) audio on the device; the same taps,
-    plan and output as ``resample``, in fp32 (TF32 off).
+    plan and output as ``resample``, the sums in float64 from the audio as
+    it comes when it is float64, else from it in fp32.
 
-    The JAX package writes the up-by-p stage as an input dilation of one
-    convolution. Stuffing p - 1 zeros between samples would multiply the
-    input by p (147 for 48,000 -> 44,100), so this is the polyphase form:
-    output ``m = r + p*t`` reads only taps ``taps[phi_r::p]`` (``phi_r`` =
-    (start + r)*q mod p) against input samples ``b_r + q*t - j`` (``b_r`` =
-    (start + r)*q // p), one stride-q convolution a phase r, written into
-    the output at stride p. ``audio`` is a tensor (its device is used) or
-    an array (moved to ``device``, the card by default); the result is a
-    float32 tensor on that device.
+    On a CUDA tensor the kernel ``ops/kernels/resample_poly.py`` runs (or
+    raises; it refuses an input that requires grad under grad mode, having
+    no backward); on any other device its plain version,
+    ``resample_polyphase``, which autograd differentiates. ``audio`` is a
+    tensor (its device is used) or an array (moved to ``device``, the card
+    by default); the result is a float32 tensor on that device.
     """
     _check_rates(orig_sr, new_sr)
-    if isinstance(audio, torch.Tensor):
-        x = audio.to(torch.float32)
-    else:
-        x = torch.as_tensor(np.asarray(audio, np.float32),
-                            device=resolve_device(device))
+    if not isinstance(audio, torch.Tensor):
+        audio = torch.as_tensor(np.asarray(audio),
+                                device=resolve_device(device))
+    x = audio if audio.dtype == torch.float64 else audio.to(torch.float32)
     if orig_sr == new_sr:
-        return x
+        return x.to(torch.float32)
     squeeze = x.dim() == 1
     if squeeze:
         x = x[:, None]
-    n_in, n_ch = x.shape
-    p, q, taps, half, c, start, n_out = _resample_plan(n_in, orig_sr, new_sr)
-    phases = []  # (r, offset of its reversed sub-filter, length, lo, n_r)
-    filters, off = [], 0
-    for r in range(min(p, n_out)):
-        base, phi = divmod((start + r) * q, p)
-        # conv1d correlates, out[t] = sum_k g[k] x'[lo + q*t + k], with g
-        # the sub-filter reversed and lo = base - (len - 1), where x' is x
-        # behind c zeros: lo is lowered by c to index x itself
-        g = taps[phi::p][::-1]
-        filters.append(g)
-        n_r = -(-(n_out - r) // p)
-        phases.append((r, off, len(g), base - (len(g) - 1) - c, n_r))
-        off += len(g)
-    left = max(0, -min(ph[3] for ph in phases))
-    right = max(0, max(lo + q * (n_r - 1) + k
-                       for _, _, k, lo, n_r in phases) - n_in)
-    xp = torch.nn.functional.pad(x.t()[:, None, :], (left, right))  # [C,1,L]
-    bank = torch.as_tensor(np.concatenate(filters).astype(np.float32),
-                           device=x.device)  # every sub-filter, one copy
-    out = x.new_zeros((n_ch, -(-n_out // p) * p))
-    rows = out.view(n_ch, -1, p)  # output r + p*t at rows[:, t, r]
-    with tf32_scope(False):
-        for r, at, k, lo, n_r in phases:
-            seg = xp[..., left + lo:left + lo + q * (n_r - 1) + k]
-            rows[:, :n_r, r] = torch.nn.functional.conv1d(
-                seg, bank[at:at + k][None, None], stride=q)[:, 0]
-    y = out[:, :n_out].t()
-    return y[:, 0] if squeeze else y.contiguous()
+    if x.device.type == "cuda":
+        from waveunet_tpu_torch.ops.kernels.resample_poly import (
+            resample_poly_cuda)
+        y = resample_poly_cuda(x.contiguous(), orig_sr, new_sr)
+    else:
+        y = resample_polyphase(x, orig_sr, new_sr)
+    return y[:, 0] if squeeze else y
