@@ -23,7 +23,7 @@ from typing import Dict, Mapping, Optional
 
 import torch
 
-from benchmark import catalog
+from benchmark import catalog, families
 from benchmark import trace as tr
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "waveunet_tpu")
@@ -33,13 +33,11 @@ UNITS = {"separated_audio_s_per_s": "audio-s/s",
          "trained_audio_s_per_s": "audio-s/s",
          "setup_s": "s"}
 
-# The CPU rehearsal's sizes: every width and length cut, nothing else.
-TINY = {"arch": {"num_layers": 3, "num_initial_filters": 4,
-                 "num_frames": 1024, "infer_batch": 4, "train_songs": 2,
-                 "train_song_s": 0.5},
-        "mix": {"lengths_s": {"min": 0.3, "max": 1.0, "count": 3,
-                              "spacing": "linear"},
-                "batch": 2, "check_extra": 1}}
+# The CPU rehearsal's cut of a traffic mix: lengths only. The model
+# family's ``TINY`` cuts the configuration.
+TINY_MIX = {"lengths_s": {"min": 0.3, "max": 1.0, "count": 3,
+                          "spacing": "linear"},
+            "batch": 2, "check_extra": 1}
 
 
 class RunError(RuntimeError):
@@ -82,10 +80,12 @@ def power_limit() -> Optional[str]:
         return None
 
 
-def shrink(cell: Dict, sizes: Mapping) -> Dict:
+def shrink(cell: Dict) -> Dict:
+    """The cell at the rehearsal's size: the family's ``TINY`` and
+    ``TINY_MIX``."""
     cell = dict(cell)
-    cell["arch"] = dict(cell["arch"], **sizes["arch"])
-    cell["mix"] = dict(cell["mix"], **{k: v for k, v in sizes["mix"].items()
+    cell["arch"] = dict(cell["arch"], **families.of(cell["arch"]).TINY)
+    cell["mix"] = dict(cell["mix"], **{k: v for k, v in TINY_MIX.items()
                                        if k in cell["mix"]})
     return cell
 
@@ -112,12 +112,13 @@ def _sync(device: torch.device) -> None:
 def run(name: str, seed: int, seconds: float, trace: bool = False,
         rehearsal: bool = False, control: Optional[str] = None) -> Dict:
     cell = catalog.cell(name)
+    families.of(cell["arch"])  # an unknown network is refused first
     try:
         import waveunet_tpu_torch  # noqa: F401  the program under test
     except ImportError as e:
         raise RunError(f"the program is missing: {e}", 2) from e
     if rehearsal:
-        cell, device, trace = shrink(cell, TINY), torch.device("cpu"), False
+        cell, device, trace = shrink(cell), torch.device("cpu"), False
     else:
         if not torch.cuda.is_available():
             raise RunError("no CUDA device: the benchmark runs on the card",

@@ -1,10 +1,9 @@
 """Everything a run feeds the program, made from ``--seed`` on the device.
 
 Weights: one uniform draw from a ``torch.Generator`` on the run's device,
-cut into the Wave-U-Net's leaves (``down_i``, ``bottleneck``,
-``interp_i``, ``up_i``, ``out_<source>``; TF layouts) and scaled per leaf:
-Glorot-uniform kernels, biases uniform in +-0.05 (nonzero, so that a lost
-bias shows), interpolation weights uniform in +-sqrt(3 / C).
+cut into the leaves of the model family's layout and scaled per leaf
+(``uniform_leaves``; the layout and the scales are the family's,
+``families/``).
 
 Audio: stereo float32 "songs" that sound like something: a few partials
 (log-uniform 55-3,520 Hz) under slow amplitude swells, panned, over noise,
@@ -15,61 +14,24 @@ file; the seed chooses the audio and the order.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Mapping, Sequence
+from typing import Callable, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
 
-from benchmark.reference import shapes
 
-
-def leaf_shapes(arch: Mapping) -> Dict[str, Dict[str, tuple]]:
-    """{layer: {leaf: shape}} of the Wave-U-Net's parameters."""
-    L, f0 = arch["num_layers"], arch["num_initial_filters"]
-    C = 1 if arch["mono_downmix"] else 2
-    out: Dict[str, Dict[str, tuple]] = {}
-
-    def conv(name, k, cin, cout):
-        out[name] = {"kernel": (k, cin, cout), "bias": (cout,)}
-
-    cin = C
-    for i in range(L):
-        conv(f"down_{i}", arch["filter_size"], cin, f0 * (i + 1))
-        cin = f0 * (i + 1)
-    conv("bottleneck", arch["filter_size"], cin, f0 * (L + 1))
-    cur = f0 * (L + 1)
-    for i in range(L):
-        if arch["upsampling"] == "learned":
-            out[f"interp_{i}"] = {"weights": (cur,)}
-        skip = f0 * (L - i)
-        conv(f"up_{i}", arch["merge_filter_size"], skip + cur, skip)
-        cur = skip
-    names = shapes.source_names(arch)
-    n_out = len(names) - (1 if arch["output_type"] == "difference" else 0)
-    for name in names[:n_out]:
-        conv(f"out_{name}", arch["output_filter_size"], cur + C, C)
-    return out
-
-
-def _limit(leaf: str, shape: tuple) -> float:
-    if leaf == "kernel":
-        k, cin, cout = shape
-        return math.sqrt(6.0 / (k * cin + k * cout))
-    if leaf == "bias":
-        return 0.05
-    return math.sqrt(3.0 / shape[0])
-
-
-def weights(arch: Mapping, seed: int, device: torch.device
-            ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The seeded weights, made on ``device`` in one draw."""
-    layout = leaf_shapes(arch)
+def uniform_leaves(layout: Mapping[str, Mapping[str, tuple]],
+                   scale: Callable[[str, tuple], float], seed: int,
+                   device: torch.device) -> Dict[str, Dict]:
+    """{layer: {leaf: tensor}} of the shapes ``layout`` gives, made on
+    ``device`` in one draw: uniform in +-1 in layout order, each leaf
+    times ``scale(leaf, shape)``."""
     sizes = [math.prod(s) for leaves in layout.values()
              for s in leaves.values()]
     gen = torch.Generator(device=device).manual_seed(seed)
     u = torch.rand(sum(sizes), generator=gen, device=device) * 2 - 1
     parts = iter(torch.split(u, sizes))
-    return {layer: {leaf: next(parts).view(shape) * _limit(leaf, shape)
+    return {layer: {leaf: next(parts).view(shape) * scale(leaf, shape)
                     for leaf, shape in leaves.items()}
             for layer, leaves in layout.items()}
 

@@ -26,11 +26,11 @@ def launch_counts() -> Dict[str, int]:
     return counts()
 
 
-def separator(arch: Mapping, params, device, max_song_s: float):
-    """``Separator.separate`` with its CUDA graphs captured for songs of up
-    to ``max_song_s`` seconds."""
+def separator(arch: Mapping, params, state, device, max_song_s: float):
+    """``Separator.separate`` of the model ``params`` with ``state``, its
+    CUDA graphs captured for songs of up to ``max_song_s`` seconds."""
     from waveunet_tpu_torch.infer.engine import Separator
-    sep = Separator(config(arch), params, device=device)
+    sep = Separator(config(arch), params, model_state=state, device=device)
     if device.type == "cuda":
         sep.precompile(max_song_s=max_song_s)
     return sep.separate

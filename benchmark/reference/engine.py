@@ -13,26 +13,30 @@ overlap. With the difference output the last source is
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from benchmark.reference import resample as rs
-from benchmark.reference import shapes, waveunet
+from benchmark.reference.sources import source_names
+
+# windows [k, in_len, C] -> {source: [k, out_len, C]}
+Forward = Callable[[torch.Tensor], Dict[str, torch.Tensor]]
 
 
-def separate(params: Mapping, arch: Mapping, mix: np.ndarray, sr: int,
-             device: torch.device, precision: str = "fp32",
+def separate(forward: Forward, window: Tuple[int, int], arch: Mapping,
+             mix: np.ndarray, sr: int, device: torch.device,
              batch: int = 16) -> Dict[str, np.ndarray]:
     """(frames, channels) float32 audio at ``sr`` -> {source: float32
-    (frames at the model rate, channels)}; windows go through the forward
-    ``batch`` at a time."""
+    (frames at the model rate, channels)}. ``forward`` is the network's
+    reference forward and ``window`` its (input, output) lengths; windows
+    go through it ``batch`` at a time."""
     x = torch.as_tensor(np.ascontiguousarray(mix), device=device)
     if x.shape[1] == 1:
         x = x.repeat(1, 2)
     x = rs.resample(x, sr, arch["expected_sr"])
-    in_len, out_len = shapes.get_padding(arch, shapes.infer_frames(arch))
+    in_len, out_len = window
     pad = (in_len - out_len) // 2
     n = x.shape[0]
     n_total = max(n, in_len)
@@ -41,13 +45,13 @@ def separate(params: Mapping, arch: Mapping, mix: np.ndarray, sr: int,
     padded[pad:pad + n] = x
     starts = list(range(0, n_total, out_len))
     starts = [min(s, n_total - out_len) for s in starts]
-    names = shapes.source_names(arch)
+    names = source_names(arch)
     diff = arch["output_type"] == "difference"
     out = {}
     for b0 in range(0, len(starts), batch):
         group = starts[b0:b0 + batch]
         wins = torch.stack([padded[s:s + in_len] for s in group])
-        y = waveunet.forward(params, arch, wins, precision=precision)
+        y = forward(wins)
         for name in (names[:-1] if diff else names):
             buf = out.setdefault(name, torch.zeros(
                 (n_total, x.shape[1]), dtype=torch.float32, device=device))

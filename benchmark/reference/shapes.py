@@ -50,9 +50,3 @@ def infer_frames(arch: Mapping) -> int:
             return frames
         frames *= 2
 
-
-def source_names(arch: Mapping) -> Tuple[str, ...]:
-    """The separated sources of the configuration's task, in output order."""
-    return {"voice": ("accompaniment", "vocals"),
-            "multi_instrument": ("bass", "drums", "other", "vocals")}[
-                arch["task"]]

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from benchmark.reference import shapes, waveunet
+from benchmark.reference.sources import source_names
 
 M64 = (1 << 64) - 1
 
@@ -56,7 +57,7 @@ def batch_at(bank: Sequence[torch.Tensor], arch: Mapping, key: int,
              step: int, batch: int, in_len: int, out_len: int):
     """(batch dict, [(song, start)] of each row) of step ``step``; ``bank``
     is one int16 [sources, length, C] tensor a song."""
-    names = shapes.source_names(arch)
+    names = source_names(arch)
     S = len(names)
     d = draws(key, step, batch, 2 + S)
     rows, where = [], []
@@ -79,7 +80,7 @@ def batch_at(bank: Sequence[torch.Tensor], arch: Mapping, key: int,
 
 
 def loss_of(params, arch, batch_) -> torch.Tensor:
-    names = shapes.source_names(arch)
+    names = source_names(arch)
     est = waveunet.forward(params, arch, batch_["mix"], training=True,
                            precision=arch["_precision"])
     return sum(torch.mean(torch.square(batch_[n] - est[n]))

@@ -28,7 +28,7 @@ from typing import Dict, List, Mapping
 import torch
 import torch.nn.functional as F
 
-from benchmark.reference.shapes import source_names
+from benchmark.reference.sources import source_names
 
 ALPHA = 0.2
 

@@ -9,8 +9,10 @@ Prints, as the last line of standard output, one JSON object: ``correct``,
 ``--trace 1`` a ``breakdown``, and last ``checks``: each number the
 correctness check compared, with its limit (also the last lines of
 standard error). Exits non-zero without a result line when no card is
-found, when the program is missing, when a module of JAX or of the JAX
-package is loaded, or when the trace and the launch counters disagree.
+found, when the program is missing, when the configuration's network has
+no model family (or a training cell's family no training hooks), when a
+module of JAX or of the JAX package is loaded, or when the trace and the
+launch counters disagree.
 Run from the root of a checkout; the kernel library builds there, under
 the program's own ``_build/``, on the first run.
 """
@@ -39,11 +41,12 @@ def main(argv=None) -> int:
     os.environ.setdefault("TORCH_EXTENSIONS_DIR",
                           os.path.join(CACHE, "torch_extensions"))
 
-    from benchmark import harness, trace
+    from benchmark import families, harness, trace
     try:
         out, _ = harness.run(args.workload, args.seed, args.seconds,
                              trace=bool(args.trace))
-    except (harness.RunError, trace.MeasurementError) as e:
+    except (harness.RunError, trace.MeasurementError,
+            families.FamilyError) as e:
         print(f"benchmark: {e}", file=sys.stderr)
         return e.code
     for name, c in out["checks"].items():

@@ -6,9 +6,10 @@ host audio in and host stems out; the next starts when it returns. The
 window runs from the first request's start to the completion of the first
 request that ends ``--seconds`` or more after it.
 
-Set-up: the weights and the pool on the card, a ``Separator``, its
-``precompile`` up to the mix's longest request (as the command line's
-warm-up does), and ``warm_up``.
+The model is the configuration's family (``families/``): its weights,
+window, reference forward and work. Set-up: the weights and the pool on
+the card, a ``Separator``, its ``precompile`` up to the mix's longest
+request (as the command line's warm-up does), and ``warm_up``.
 
 Answers kept for the check: the first request of every pool entry and a
 seeded sample of the later ones, each compared with the reference once
@@ -18,13 +19,13 @@ the window has closed.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Mapping
+from typing import Callable, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
-from benchmark import inputs, work
-from benchmark.reference import engine, shapes
+from benchmark import families, inputs, work
+from benchmark.reference import engine
 
 
 def model_frames(arch: Mapping, n: int, sr: int) -> int:
@@ -32,8 +33,10 @@ def model_frames(arch: Mapping, n: int, sr: int) -> int:
     return -(-n * arch["expected_sr"] // sr)
 
 
-def windows_needed(arch: Mapping, frames: int) -> int:
-    in_len, out_len = shapes.get_padding(arch, shapes.infer_frames(arch))
+def windows_needed(window: Tuple[int, int], frames: int) -> int:
+    """The windows of (input, output) lengths ``window`` that a request of
+    ``frames`` at the model's rate needs."""
+    in_len, out_len = window
     return -(-max(frames, in_len) // out_len)
 
 
@@ -43,8 +46,11 @@ class Serving:
     def __init__(self, cell: Mapping, seed: int, device: torch.device,
                  system: Callable = None):
         self.arch, self.mix = cell["arch"], cell["mix"]
+        self.family = families.of(self.arch)
         self.device = device
-        self.params = inputs.weights(self.arch, seed, device)
+        self.params, self.state = self.family.weights(self.arch, seed,
+                                                      device)
+        self.io = self.family.window(self.arch)  # (input, output)
         self.sr = self.mix["input_sr"] or self.arch["expected_sr"]
         self.lengths = inputs.lengths_s(self.mix["lengths_s"])
         self.pool = inputs.songs(self.lengths, self.sr, seed, device)
@@ -91,7 +97,7 @@ class Serving:
             frames = model_frames(self.arch, song.shape[0], self.sr)
             reqs.append(dict(entry=entry, audio_s=song.shape[0] / self.sr,
                              latency_s=t1 - t0,
-                             windows=windows_needed(self.arch, frames),
+                             windows=windows_needed(self.io, frames),
                              out=out if i in self.keep else None,
                              ok=out is not None))
             i += 1
@@ -108,13 +114,13 @@ class Serving:
 
     def work(self, w: Dict) -> Dict:
         """What the window's requests needed, for the per-layer readers."""
-        in_len, _ = shapes.get_padding(self.arch,
-                                       shapes.infer_frames(self.arch))
+        in_len, _ = self.io
         calls = [c for r in w["requests"]
-                 for c in work.request_calls(self.arch, in_len,
-                                             r["windows"])]
+                 for c in work.request_calls(self.family.calls, self.arch,
+                                             in_len, r["windows"])]
         return {"calls": calls,
-                "flops": sum(c.flops for c in calls if c.op != "interp")}
+                "flops": sum(c.flops for c in calls
+                             if c.op in self.family.FLOP_OPS)}
 
     def check(self, w: Dict) -> Dict[str, float]:
         """The widest gap of a kept stem sample from the reference's, over
@@ -127,9 +133,7 @@ class Serving:
                 continue
             e = r["entry"]
             if e not in refs:
-                refs[e] = engine.separate(self.params, self.arch,
-                                          self.pool[e], self.sr, self.device,
-                                          batch=self.arch["infer_batch"])
+                refs[e] = reference_separate(self)(self.pool[e], self.sr)
             worst = max(worst, stem_gap(r["out"], refs[e]))
             n += 1
         return {"stem_gap": worst, "compared": n}
@@ -157,14 +161,22 @@ def port_system(s: Serving) -> Callable:
     """``Separator.separate`` of the port, its graphs captured up to the
     mix's longest request."""
     from benchmark import port
-    return port.separator(s.arch, s.params, s.device, max(s.lengths))
+    return port.separator(s.arch, s.params, s.state, s.device,
+                          max(s.lengths))
+
+
+def reference_separate(s: Serving, precision: str = "fp32") -> Callable:
+    """``separate(mix, sr)`` of the reference: the engine's rules over the
+    family's reference forward at ``precision``."""
+    def forward(wins):
+        return s.family.forward(s.params, s.state, s.arch, wins, precision)
+
+    def separate(mix, sr):
+        return engine.separate(forward, s.io, s.arch, mix, sr,
+                               s.device, batch=s.arch["infer_batch"])
+    return separate
 
 
 def reference_system(precision: str) -> Callable:
     """The reference in the program's place (the control)."""
-    def make(s: Serving) -> Callable:
-        def separate(mix, sr):
-            return engine.separate(s.params, s.arch, mix, sr, s.device,
-                                   precision, batch=s.arch["infer_batch"])
-        return separate
-    return make
+    return lambda s: reference_separate(s, precision)

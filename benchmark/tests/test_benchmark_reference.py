@@ -10,7 +10,9 @@ import pytest
 import torch
 
 from benchmark import inputs
+from benchmark.families import unet
 from benchmark.reference import engine, resample, shapes, train, waveunet
+from benchmark.reference.sources import source_names
 
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
@@ -52,14 +54,14 @@ def test_shapes_match_the_port(arch):
                 num_frames=16384)
     assert shapes.get_padding(full, shapes.infer_frames(full)) == (196595,
                                                                    65541)
-    assert shapes.source_names(arch) == cfg.source_names
+    assert source_names(arch) == cfg.source_names
 
 
 @pytest.mark.parametrize("arch", [M5, M6], ids=["learned", "bilinear"])
 @pytest.mark.parametrize("training", [False, True])
 def test_forward_matches_the_port(arch, training):
     from waveunet_tpu_torch.models.waveunet import apply_waveunet
-    params = inputs.weights(arch, 3, CPU)
+    params, _ = unet.weights(arch, 3, CPU)
     in_len, _ = shapes.get_padding(arch, 1024)
     x = torch.rand((2, in_len, 2), generator=torch.Generator().manual_seed(
         1)) * 1.6 - 0.8
@@ -79,11 +81,13 @@ def test_forward_matches_the_port(arch, training):
 ], ids=["short", "m5", "m6-44k", "m6-22k"])
 def test_separation_matches_the_port(arch, sr, seconds):
     from waveunet_tpu_torch.infer.engine import Separator
-    params = inputs.weights(arch, 4, CPU)
+    params, state = unet.weights(arch, 4, CPU)
     song = inputs.songs([seconds], sr, 5, CPU)[0]
-    got = Separator(port_cfg(arch), params, device="cpu").separate(song, sr)
-    ref = engine.separate(params, arch, song, sr, CPU,
-                          batch=arch["infer_batch"])
+    got = Separator(port_cfg(arch), params, model_state=state,
+                    device="cpu").separate(song, sr)
+    ref = engine.separate(
+        lambda wins: unet.forward(params, state, arch, wins, "fp32"),
+        unet.window(arch), arch, song, sr, CPU, batch=arch["infer_batch"])
     assert set(got) == set(ref)
     for k in ref:
         assert got[k].shape == ref[k].shape
@@ -119,7 +123,7 @@ def _bank_songs(arch, n_songs=2, seconds=0.5):
     n = int(seconds * arch["expected_sr"])
     return [{s: (0.45 * inputs.audio(gen, n, arch["expected_sr"],
                                      CPU)).numpy()
-             for s in shapes.source_names(arch)} for _ in range(n_songs)]
+             for s in source_names(arch)} for _ in range(n_songs)]
 
 
 def _port_bank(arch, songs, tmp_path, batch):
@@ -138,7 +142,7 @@ def test_sampler_draws_match_the_port(tmp_path):
     songs = _bank_songs(M5)
     bank, _ = _port_bank(M5, songs, tmp_path, 3)
     ref_bank = [torch.as_tensor(np.stack([train.quantise(s[k]) for k in
-                                          shapes.source_names(M5)]))
+                                          source_names(M5)]))
                 for s in songs]
     in_len, out_len = shapes.get_padding(M5, M5["num_frames"])
     for key, step in ((7, 0), (2 ** 31 + 11, 5), (12345678901, 123)):
@@ -153,14 +157,14 @@ def test_sampler_draws_match_the_port(tmp_path):
 
 def test_training_steps_match_the_port(tmp_path):
     songs = _bank_songs(M5)
-    params = inputs.weights(M5, 8, CPU)
+    params, _ = unet.weights(M5, 8, CPU)
     p0 = {k: {n: t.clone() for n, t in v.items()} for k, v in params.items()}
     _, epoch = _port_bank(M5, songs, tmp_path, 2)
     from benchmark import port
     opt = port.adam_state(M5, params)
     losses = [float(epoch(params, {}, opt, 99, t)[3][0]) for t in range(3)]
     ref_bank = [torch.as_tensor(np.stack([train.quantise(s[k]) for k in
-                                          shapes.source_names(M5)]))
+                                          source_names(M5)]))
                 for s in songs]
     ref = train.run_steps(p0, M5, ref_bank, 99, 3, 2, 1e-4)
     np.testing.assert_allclose(losses, ref["losses"], rtol=1e-5)

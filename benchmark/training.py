@@ -22,6 +22,10 @@ moves of either sign; it is reported beside (``change_gap_worst``) and
 not judged. A leaf whose reference gradient's norm is under a thousandth
 of the median leaf's moves by round-off alone and is left out of the
 change (the learned interpolations' weights, at these sizes).
+
+The training window, a step's FLOPs and the reference's steps are the
+model family's training hooks (``families/``); a cell whose family has
+none is refused before anything is set up.
 """
 
 from __future__ import annotations
@@ -35,9 +39,9 @@ from typing import Callable, Dict, Mapping
 import numpy as np
 import torch
 
-from benchmark import inputs, work
-from benchmark.reference import shapes
+from benchmark import families, inputs
 from benchmark.reference import train as ref
+from benchmark.reference.sources import source_names
 
 CHECK_STEPS = 3
 MOVED = 1e-3   # a leaf counts in the change if its reference gradient's
@@ -59,19 +63,19 @@ class Training:
     def __init__(self, cell: Mapping, seed: int, device: torch.device,
                  control: str = None):
         self.arch, self.mix = cell["arch"], cell["mix"]
+        self.family = families.trainer(self.arch)
         self.device, self.key = device, seed
         self.batch = self.mix["batch"]
-        self.in_len, self.out_len = shapes.get_padding(
-            self.arch, self.arch["num_frames"])
-        params = inputs.weights(self.arch, seed, device)
+        self.in_len, self.out_len = self.family.train_window(self.arch)
+        params, self.mstate = self.family.weights(self.arch, seed, device)
         self.p0 = _clone(params)
         self.stems = self._songs(seed)
         if device.type == "cuda":  # the peak is the program's, from here
             torch.cuda.reset_peak_memory_stats(device)
         if control is not None:
-            r = ref.run_steps(params, self.arch, self._bank(), seed,
-                              CHECK_STEPS, self.batch,
-                              self.arch["init_sup_sep_lr"], control)
+            r = self.family.reference_steps(
+                params, self.arch, self._bank(), seed, CHECK_STEPS,
+                self.batch, self.arch["init_sup_sep_lr"], control)
             self.seen = {"losses": r["losses"], "grads1": r["grads1"],
                          "params": r["params"]}
             self.epoch = None
@@ -87,13 +91,13 @@ class Training:
         """[(source -> [n, 2] float32)] of every training song."""
         gen = torch.Generator(device=self.device).manual_seed(seed ^ 0xBA4C)
         n = int(round(self.arch["train_song_s"] * self.arch["expected_sr"]))
-        names = shapes.source_names(self.arch)
+        names = source_names(self.arch)
         return [{s: (0.45 * inputs.audio(gen, n, self.arch["expected_sr"],
                                          self.device)).cpu().numpy()
                  for s in names} for _ in range(self.arch["train_songs"])]
 
     def _bank(self):
-        names = shapes.source_names(self.arch)
+        names = source_names(self.arch)
         return [torch.as_tensor(np.stack([ref.quantise(s[k]) for k in names]),
                                 device=self.device) for s in self.stems]
 
@@ -109,7 +113,7 @@ class Training:
         from benchmark import port
         self.bank, self.epoch = port.fused_epoch(self.arch, self.dir,
                                                  self.batch, self.device)
-        self.params, self.mstate = params, {}
+        self.params = params
         self.opt = port.adam_state(self.arch, params)
         losses = []
         for t in range(CHECK_STEPS):
@@ -147,9 +151,8 @@ class Training:
         return {"trained_audio_s_per_s": audio / w["window_s"]}
 
     def work(self, w: Dict) -> Dict:
-        """The step's FLOPs: three forwards' worth a window (the forward,
-        and the backward's two products a conv)."""
-        return {"calls": [], "flops": 3 * work.waveunet_conv_flops(
+        """The steps' FLOPs: the family's count a window and step."""
+        return {"calls": [], "flops": self.family.train_flops(
             self.arch, self.in_len) * self.batch * w["steps"]}
 
     def free(self) -> None:
@@ -157,9 +160,9 @@ class Training:
 
     def check(self, w: Dict) -> Dict[str, float]:
         """The gaps of the first three steps from the reference's."""
-        r = ref.run_steps(_tree(self.p0), self.arch,
-                          self._bank(), self.key, CHECK_STEPS, self.batch,
-                          self.arch["init_sup_sep_lr"])
+        r = self.family.reference_steps(
+            _tree(self.p0), self.arch, self._bank(), self.key, CHECK_STEPS,
+            self.batch, self.arch["init_sup_sep_lr"])
         rows = [x for step in r["rows"] for x in step]
         seen = self.seen
         loss_gap = max(abs(a - b) / abs(b)
