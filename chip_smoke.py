@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py               # every phase
     python3 chip_smoke.py bs_roformer   # phases 1 and 18 alone
+    python3 chip_smoke.py difference    # phases 1, 2 and 9's difference check
 
 Runs from the root of a checkout, on a machine with a CUDA card, the CUDA
 toolkit and PyTorch; it needs no network, no JAX and no file outside the
@@ -59,7 +60,11 @@ wall seconds, each under a watchdog:
   9. graphs: precompile() on the served engine, then the three requests
      again through the CUDA graphs and pinned copies, identical bit for bit
      to the eager run; walls, device time and idle share beside the eager
-     requests';
+     requests'; then the difference source the chunk program builds, for
+     M5 and M6 at full width on a 240 s song, in song and in slab mode
+     through precompile()'s graphs: bit for bit the host's rebuild
+     clip(mix - sum(others), -1, 1) from the returned stems, one
+     separate.device_difference a request, no separate.difference span;
   10. spectro: U7 at full width separating 30 s on the card and on the CPU,
      compared, and through its CUDA graphs (bit for bit); then with
      compute_dtype="bfloat16": every distinct conv2d and conv2d_transpose
@@ -572,6 +577,18 @@ def main() -> int:
             "count": torch.cuda.device_count(), "smi": smi}}), flush=True)
         return 0
 
+    if sys.argv[1:] == ["difference"]:
+        with phase("build"):
+            build.build()
+            build.load()
+        with phase("graphs"):
+            row = difference_check(get_config, model, Separator, np, torch,
+                                   dev)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(), "smi": smi}}), flush=True)
+        return 0
+
     with phase("build"):
         built = build.build()
         build.load()
@@ -975,6 +992,8 @@ def main() -> int:
     with phase("graphs"):
         graph_rows = graphs_check(sep, requests, sr, kernels, np, torch)
         path_launches["graphs"] = graph_rows["launches"]
+        graph_rows["difference"] = difference_check(get_config, model,
+                                                    Separator, np, torch, dev)
 
     with phase("spectro"):
         spectro_row = spectro_check(get_config, Separator, kernels, clip, np,
@@ -1347,7 +1366,8 @@ def sweep_check(get_config, model, Separator, conv1d_fused, interp, kernels,
         want = {k: 3 * v for k, v in graph.launches.items()}
         per_chunk = {"conv1d_lrelu": 2 * cfg.num_layers + 1,
                      "learned_interp": cfg.num_layers,
-                     "conv1d_lrelu_im2col": 0, "resample_poly": 0}
+                     "conv1d_lrelu_im2col": 0, "resample_poly": 0,
+                     "attention": 0}
         per_graph = {k: v * len(sizes) for k, v in per_chunk.items()}
         eager_ms = time_cuda(lambda: eager_fn(sep.params, song_dev), torch)
         graph_ms = time_cuda(lambda: graph_fn(sep.params, song_dev), torch)
@@ -1516,6 +1536,57 @@ def graphs_check(sep, requests, sr, kernels, np, torch):
     if any(r["counters"].get("separate.eager_chunks") for r in graph_bd):
         fail("a graphed request ran a chunk eagerly")
     return row
+
+
+def difference_check(get_config, model, Separator, np, torch, dev):
+    """The difference source from the chunk program on the float32 wire:
+    M5 (full_44KHz) and M6 (full_multi_instrument) at full width, one
+    precompile(240 s) each, a 240 s song in song and in slab mode through
+    the graphs. The last stem must be bit for bit what the host rebuilt
+    from the returned stems before (``np.clip(mix - sum(others), -1, 1)``
+    in float32), every chunk a replay, one ``separate.device_difference``
+    a request and no ``separate.difference`` span; walls and the
+    request's spans (``request_breakdown``) beside."""
+    rows = {}
+    for preset in ("full_44KHz", "full_multi_instrument"):
+        cfg = get_config(preset)
+        sep = Separator(cfg, model.init_waveunet(
+            torch.Generator().manual_seed(SEED), cfg, dev))
+        sr = cfg.expected_sr
+        t = np.arange(240 * sr) / sr
+        song = (0.3 * np.sin(2 * np.pi * 220.0 * t)[:, None]
+                + 0.1 * np.random.default_rng(SEED).standard_normal(
+                    (t.size, 2))).astype(np.float32)
+        n_graphs = sep.precompile(max_song_s=240)
+        names = list(cfg.source_names)
+        for mode in ("song", "slabs"):
+            sep._h2d_mode = mode
+            out = sep.separate(song, sr)
+            want = np.clip(song - sum(out[s] for s in names[:-1]), -1.0,
+                           1.0).astype(np.float32)
+            bd = request_breakdown(sep, song, sr, torch)
+            row = {"graphs": n_graphs,
+                   "bit_for_bit": bool(np.array_equal(out[names[-1]],
+                                                      want)),
+                   "differ": int(np.sum(out[names[-1]] != want)),
+                   "device_difference": bd["counters"].get(
+                       "separate.device_difference", 0),
+                   "eager_chunks": bd["counters"].get(
+                       "separate.eager_chunks", 0),
+                   "wall_ms": bd["wall_ms"], "host_ms": bd["host_ms"],
+                   "wait_ms": bd["wait_ms"], "span_ms": bd["span_ms"]}
+            rows[f"{preset}/{mode}"] = row
+            print(f"difference {preset} {mode}: {json.dumps(row)}",
+                  flush=True)
+            if not (row["bit_for_bit"] and row["device_difference"] == 1
+                    and row["eager_chunks"] == 0
+                    and "separate.difference" not in row["span_ms"]):
+                fail(f"{preset} {mode}: the chunk program's difference "
+                     f"source is not the host's rebuild bit for bit, or "
+                     f"the request ran otherwise: {json.dumps(row)}")
+        del sep, out, want
+        torch.cuda.empty_cache()
+    return rows
 
 
 def spectro_check(get_config, Separator, kernels, clip, np, torch, dev):
@@ -2642,7 +2713,8 @@ def eval_check(get_config, model, conv1d_fused, interp, kernels, np, torch):
         n_chunks = chunks(2 * sr) + EVAL_SONGS * chunks(EVAL_SONG_S * sr)
         want = {"conv1d_lrelu": (2 * cfg.num_layers + 1) * n_chunks,
                 "learned_interp": cfg.num_layers * n_chunks,
-                "conv1d_lrelu_im2col": 0, "resample_poly": 0}
+                "conv1d_lrelu_im2col": 0, "resample_poly": 0,
+                "attention": 0}
         runs = {}
         for name, tpu_bss in (("host", False), ("fp32", True),
                               ("f64", "f64")):

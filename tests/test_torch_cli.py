@@ -258,7 +258,8 @@ def test_profile_cli(cli_env, tmp_path, capsys):
 
 def test_profile_cli_shows_bs_roformer_parts(tmp_path, capsys):
     """The profiled separation runs the forward eagerly, so BS-RoFormer's
-    own spans show beside the engine's."""
+    own spans show beside the engine's; the difference source comes from
+    the chunk program (the float32 wire), counted, with no host span."""
     run("profile", "bs_roformer", "dim=16", "depth=2", "heads=2",
         "dim_head=8", "stft_n_fft=64", "stft_hop=16",
         "freqs_per_bands=[4,4,4,4,8,9]", "num_frames=22050",
@@ -267,7 +268,8 @@ def test_profile_cli_shows_bs_roformer_parts(tmp_path, capsys):
     for part in ("stft", "band_split", "time_layer", "band_layer", "mask",
                  "istft"):
         assert f"span roformer.{part}:" in out
-    assert "span separate.difference:" in out
+    assert "  counter separate.device_difference: 1" in out.splitlines()
+    assert "span separate.difference:" not in out
 
 
 def test_prepare_data_cli(cli_env, tmp_path, capsys):

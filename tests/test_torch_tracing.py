@@ -28,15 +28,25 @@ from waveunet_tpu_torch.ops.resample import resample, resample_device
 from torch_cpu import few_threads  # noqa: F401
 
 CHILDREN = ("resample", "separate.stage", "separate.chunk",
-            "separate.stitch", "separate.difference")
+            "separate.stitch")
 
 
-@pytest.fixture(scope="module")
-def sep():
+def children(sep):
+    """The spans under ``separate``: the host builds the difference source
+    (``separate.difference``) on the int16 wire alone."""
+    if sep.cfg.infer_wire_dtype == "int16":
+        return CHILDREN + ("separate.difference",)
+    return CHILDREN
+
+
+@pytest.fixture(scope="module", params=["float32", "int16"])
+def sep(request):
     """A shrunk full_44KHz at 22.05 kHz: a 44.1 kHz request goes through
-    the resampler, and the difference source is rebuilt on the host."""
+    the resampler; the difference source comes from the chunk program on
+    the float32 wire and is rebuilt on the host on the int16 wire."""
     cfg = get_config("full_44KHz", num_layers=3, num_initial_filters=4,
-                     infer_num_frames=256, infer_batch=4, expected_sr=22050)
+                     infer_num_frames=256, infer_batch=4, expected_sr=22050,
+                     infer_wire_dtype=request.param)
     params = init_waveunet(torch.Generator().manual_seed(0), cfg, "cpu")
     return Separator(cfg, params, device="cpu")
 
@@ -79,7 +89,9 @@ def test_spans_nest_under_separate_in_the_trace(sep, tmp_path):
               if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
     (outer,) = [e for e in events if e["name"] == "separate"]
     a, b = outer["ts"], outer["ts"] + outer["dur"]
-    for name in CHILDREN:
+    assert ("separate.difference" in {e["name"] for e in events}) == (
+        sep.cfg.infer_wire_dtype == "int16")
+    for name in children(sep):
         inner = [e for e in events if e["name"] == name]
         assert inner, name
         for e in inner:
@@ -92,23 +104,27 @@ def test_record_self_times_and_counters(sep):
     out, _ = _traced(lambda: sep.separate(song, 44100))
     rec = tracing.record()
     spans = rec["spans"]
-    assert set(spans) == {"separate", *CHILDREN}
+    names = children(sep)
+    assert set(spans) == {"separate", *names}
     n, total, own = spans["separate"]
     assert n == 1
-    children = sum(spans[c][1] for c in CHILDREN)
-    assert children <= total
-    assert own == pytest.approx(total - children, abs=1e-8)
-    for c in CHILDREN:
+    inner = sum(spans[c][1] for c in names)
+    assert inner <= total
+    assert own == pytest.approx(total - inner, abs=1e-8)
+    for c in names:
         cn, ct, cs = spans[c]
         assert cn >= 1 and cs == pytest.approx(ct, abs=1e-12)  # no children
     n_total = next(iter(out.values())).shape[0]
     positions = window_positions(max(n_total, sep.in_len), sep.out_len)
     sizes = sep._chunk_sizes(len(positions))
     assert len(sizes) >= 2
-    assert rec["counters"] == {"separate.windows": len(positions),
-                               "separate.window_slots": sum(sizes),
-                               "separate.chunks": len(sizes),
-                               "separate.eager_chunks": len(sizes)}
+    counters = {"separate.windows": len(positions),
+                "separate.window_slots": sum(sizes),
+                "separate.chunks": len(sizes),
+                "separate.eager_chunks": len(sizes)}
+    if sep.cfg.infer_wire_dtype == "float32":
+        counters["separate.device_difference"] = 1
+    assert rec["counters"] == counters
     assert spans["separate.chunk"][0] == len(sizes)
 
 

@@ -4,7 +4,7 @@ Counterpart of ``waveunet_tpu/infer/engine.py`` with the same semantics step
 by step: mono downmix or channel tiling, resampling to the model rate, zero
 padding of songs shorter than one network input, context padding, windows at
 hop = output length with the last one right-aligned, stitching in window
-order (later writes win), and reconstruction of the difference source.
+order (later writes win), and the difference source.
 
 The host pipeline of ``separate``:
 
@@ -15,10 +15,10 @@ The host pipeline of ``separate``:
     (``ops/kernels/resample_poly.py``; float64 products and sums, rounded
     to fp32 once, as the host path computes them) and brought back with
     one non-blocking copy into a second pinned buffer, waited for on an
-    event. The rest of ``separate`` reads that host copy, which the
-    difference source needs too. On any other device the host resamples
-    it (``ops/resample.py::resample``), and a song at the model's rate is
-    not resampled at all;
+    event. The rest of ``separate`` stages that host copy (the int16
+    wire's host difference source reads it too). On any other device the
+    host resamples it (``ops/resample.py::resample``), and a song at the
+    model's rate is not resampled at all;
   * the context-padded song is written once into a pinned host staging
     buffer (quantised there on the int16 wire, bit for bit as the JAX
     package's native host op) and crosses to the device with non-blocking
@@ -31,15 +31,28 @@ The host pipeline of ``separate``:
     host buffers on the compute stream right after its forward, and the host
     stitches a chunk once its event has completed, while the device runs
     the next ones;
+  * the difference source, ``clip(mix - sum(others), -1, 1)`` of a
+    difference-output Wave-U-Net or BS-RoFormer: on the float32 wire the
+    chunk program computes it for each window from the centre of the
+    window's own input (the Wave-U-Net's forward gives it, the BS-RoFormer
+    forward adds it, ``model_forward``), and it is copied back and
+    stitched like every other source, so the host builds nothing (counted
+    by ``separate.device_difference``). Every stitched sample of every
+    source comes from the same window, where the mix is the staged song,
+    so this is the host's rebuild bit for bit for a float32 song. On the
+    int16 wire, whose contract quantises each other source before the
+    subtraction, the chunk program leaves it out and the host rebuilds it
+    from the stitched sources and the float mix (``separate.difference``);
   * ``precompile`` captures the chunk forward of every power-of-two chunk
     size in both modes as CUDA graphs (static input and position buffers,
     one shared memory pool); ``separate`` replays a graph wherever one fits
     and runs eagerly otherwise.
 
 ``resident_sweep`` runs the whole engine on a device-resident song (framing,
-every chunk, the wire round trip, a device stitch, the difference source)
-and returns a scalar checksum: the bench's headline path, captured as one
-CUDA graph per song length on the card.
+every chunk, the wire round trip, a device stitch; the difference source
+stitched from the chunk program's on the float32 wire, rebuilt from the
+device mix on the int16 wire) and returns a scalar checksum: the bench's
+headline path, captured as one CUDA graph per song length on the card.
 
 Window parallelism (``mesh``, ``parallel/mesh.py``; every rank calls
 ``separate`` with the same song): a chunk holds ``infer_batch`` windows a
@@ -74,6 +87,7 @@ from waveunet_tpu_torch.infer.wire import (INT16_NONFINITE, dequantize,
 from waveunet_tpu_torch.ops import shapes
 from waveunet_tpu_torch.ops.kernels import Graph, capture
 from waveunet_tpu_torch.ops.kernels.resample_poly import resample_poly_cuda
+from waveunet_tpu_torch.ops.primitives import crop
 from waveunet_tpu_torch.ops.resample import resample
 from waveunet_tpu_torch.parallel.mesh import (barrier, check_mesh,
                                               gather_rows, put_replicated)
@@ -110,22 +124,39 @@ def model_params(cfg: Config, params: Mapping) -> Mapping:
 
 
 def model_forward(cfg: Config, model_state: Mapping, out_len: int,
-                  drop: Optional[str] = None) -> Forward:
+                  difference: bool = True) -> Forward:
     """The default ``forward_fn`` of ``cfg``'s family: the Wave-U-Net at
-    inference (without the ``drop`` source), BS-RoFormer on
-    ``model_params``' parameters (it computes no ``drop`` source), or the
+    inference, BS-RoFormer on ``model_params``' parameters, or the
     spectrogram U-Net with its batch-norm statistics ``model_state``, whose
-    iSTFT must give exactly ``out_len`` samples a window."""
+    iSTFT must give exactly ``out_len`` samples a window.
+
+    With the difference output, ``difference`` says whether the forward
+    gives the last source, ``clip(mix - sum(others), -1, 1)`` of each
+    window's centre ``out_len`` samples with the others summed in source
+    order: the Wave-U-Net's own (``models/waveunet.py::_output``), and
+    for BS-RoFormer, which masks only the others, the same operations
+    here; False leaves it out of both."""
+    names = cfg.source_names
+    last = names[-1] if cfg.output_type == "difference" else None
     if cfg.network == "bs_roformer":
         from waveunet_tpu_torch.models.bs_roformer import forward as roformer
 
-        return lambda p, x: roformer(p, cfg, x)
+        def forward(p, x):
+            out = roformer(p, cfg, x)
+            if difference and last is not None:
+                acc = out[names[0]]
+                for name in names[1:-1]:
+                    acc = acc + out[name]
+                out[last] = torch.clamp(crop(x, out_len) - acc, -1.0, 1.0)
+            return out
+        return forward
     if cfg.network == "unet":
         from waveunet_tpu_torch.models.waveunet import apply_waveunet
 
         def forward(p, x):
             out = apply_waveunet(p, cfg, x, training=False)
-            out.pop(drop, None)
+            if not difference:
+                out.pop(last, None)
             return out
         return forward
 
@@ -191,16 +222,20 @@ class Separator:
         self._h2d_mode = h2d_mode
         self._wire16 = cfg.infer_wire_dtype == "int16"
         self._wire_dtype = torch.int16 if self._wire16 else torch.float32
-        # The difference source is clip(mix - sum(others)), rebuilt from the
-        # stitched sources instead of computed and copied back; only for
-        # the default Wave-U-Net and BS-RoFormer forwards.
-        self._host_reconstruct_last = (
-            forward_fn is None and cfg.network in ("unet", "bs_roformer")
-            and cfg.output_type == "difference")
+        # The difference source clip(mix - sum(others)) of the default
+        # Wave-U-Net and BS-RoFormer forwards. On the fp32 wire the chunk
+        # program computes it a window and it goes home like the others;
+        # on the int16 wire, whose contract quantises each other source
+        # before the subtraction, the host rebuilds it from the stitched
+        # sources and the float mix.
+        difference = (forward_fn is None
+                      and cfg.network in ("unet", "bs_roformer")
+                      and cfg.output_type == "difference")
+        self._device_difference = difference and not self._wire16
+        self._host_reconstruct_last = difference and self._wire16
         self._forward_fn = forward_fn or model_forward(
             cfg, self.model_state, self.out_len,
-            drop=cfg.source_names[-1] if self._host_reconstruct_last
-            else None)
+            difference=not self._host_reconstruct_last)
         if forward_fn is None:
             self.params = model_params(cfg, self.params)
         self._arange_in = torch.arange(self.in_len, device=self.device)
@@ -328,7 +363,9 @@ class Separator:
         ``n_total + 2 * pad`` frames (wire dtype): framing on the device,
         every chunk through the forward, the wire round trip (the int16
         sentinel back to NaN), a device stitch in window order (later
-        writes win), and the difference source rebuilt from the device mix.
+        writes win); the difference source is stitched with the others on
+        the float32 wire, and rebuilt from the device mix on the int16
+        wire, as ``separate`` builds it.
 
         Returns ``(fn, positions)``; ``fn(params, song) -> (sources,
         checksum)`` with ``sources`` stitched ``[n_total, C]`` float32
@@ -469,7 +506,9 @@ class Separator:
                 preds = {k: v[:-extra_pad] for k, v in preds.items()}
                 mix_audio = mix_audio[:-extra_pad]
 
-            if self._host_reconstruct_last:
+            if self._device_difference:
+                tracing.count("separate.device_difference")
+            elif self._host_reconstruct_last:
                 with tracing.span("separate.difference"):
                     acc = sum(preds[s] for s in cfg.source_names[:-1])
                     preds[cfg.source_names[-1]] = np.clip(

@@ -25,8 +25,8 @@ Transformer" (arXiv:2309.02612), as ``lucidrains/BS-RoFormer``'s
 RMSNorm is ``x / max(||x||, 1e-12) * sqrt(d) * gamma``. The attention
 gates of later ``lucidrains`` versions are left out, as the paper has
 none. The model predicts the sources before the last with the difference
-output (``Config.output_type``; the engine rebuilds the last on the host),
-all of them with the direct one.
+output (``Config.output_type``; the engine's forward adds the last,
+``infer/engine.py::model_forward``), all of them with the direct one.
 
 Parameters are the port's flat dict of the ``lucidrains`` modules (kernels
 [in, out], as the other families'): ``band_split_<b>`` {gamma, kernel,
