@@ -51,12 +51,12 @@ wall seconds, each under a watchdog:
   7. presets: every Wave-U-Net preset, shrunk to 4 layers with its own
      filters and widths, serving a 1.5 s clip at infer_batch 4 on the card
      and on the CPU (the plain path), compared;
-  8. sweep: the bench's resident sweep (full_44KHz, 65,536-frame window,
-     batch 16, the 60 s bench song) on both wires, eager and as one CUDA
-     graph (identical bit for bit), against separate() on the card, timed,
-     its kernel launches counted from the graph's replays; and the int16
-     wire's dequantisers on the card bit for bit against the CPU over all
-     65,536 int16 values, with the network input of one staged song;
+  8. sweep: separate() of a 60 s song (full_44KHz, 65,536-frame window,
+     batch 16) on both wires, eager, through the kernels against the same
+     request through the plain path, at every chunk size of its schedule,
+     with its kernel launches and walls; and the int16 wire's dequantisers
+     on the card bit for bit against the CPU over all 65,536 int16 values,
+     with the network input of one staged song;
   9. graphs: precompile() on the served engine, then the three requests
      again through the CUDA graphs and pinned copies, identical bit for bit
      to the eager run; walls, device time and idle share beside the eager
@@ -81,8 +81,9 @@ wall seconds, each under a watchdog:
      bit the fp32 one's; and a step's ms at the published batch of 4;
   11. stream: full_44KHz streamed in uneven pushes, against the offline
      output on the card, and batched drains against serial ones;
-  12. bench: the port's bench (waveunet_tpu_torch/bench.py) at its
-     REPS_MIN e2e pairs, its JSON line checked key by key;
+  12. m6: full_multi_instrument at full width (65,536-frame window, batch
+     16, int16 wire) separating the 60 s song, eager with no precompile(),
+     through the kernels against the plain path;
   13. train: full_44KHz training at full width from a synthesised song
      cache (4 train, 2 valid, 1 test songs of 8 s, stereo 44.1 kHz, made
      with the port's own preprocess): the device banks (the sampler's
@@ -128,20 +129,18 @@ wall seconds, each under a watchdog:
      process group of one rank over NCCL, destroyed afterwards:
      Separator(mesh) on the 30 s request, the mesh train step (loss and
      every parameter), U7's mesh step (loss, parameters and moved
-     statistics), the mesh resident sweep of the 30 s request eager and
-     graphed (the gather captured) with its launch counts, and the fused
-     epoch over a one-rank ShardedBank with its NCCL all-reduce captured in
-     the CUDA graph against the eager mesh loop, each bit for bit against
-     the mesh-free path; pod_weighted_mean exact in float64; a step's ms
-     with and without the mesh. (b) Two spawned ranks sharing the card
-     over gloo, half the rows each of the same global batch: parameters
-     bit-identical across the ranks, the loss within 1e-5 relative and the
-     parameters within rtol 1e-4 / atol 1e-6 of the single-process step,
+     statistics), and the fused epoch over a one-rank ShardedBank with its
+     NCCL all-reduce captured in the CUDA graph against the eager mesh
+     loop, each bit for bit against the mesh-free path; pod_weighted_mean
+     exact in float64; a step's ms with and without the mesh. (b) Two
+     spawned ranks sharing the card over gloo, half the rows each of the
+     same global batch: parameters bit-identical across the ranks, the loss
+     within 1e-5 relative and the parameters within rtol 1e-4 / atol 1e-6
+     of the single-process step,
      for full_44KHz (batch 16) and U7 (batch 4, its moved statistics too;
      a conv bias a batch norm follows, whose true gradient is 0, moved by
-     at most the learning rate on both sides), and Separator(mesh) and the
-     mesh resident sweep (eager under gloo) within 1e-5 of one device (the
-     tolerances of tests/test_parallel.py).
+     at most the learning rate on both sides), and Separator(mesh) within
+     1e-5 of one device (the tolerances of tests/test_parallel.py).
 
   18. bs_roformer: BS-RoFormer at its published widths (12 blocks, D 384,
      8 heads of 64, 62 bands, n_fft 2048 / hop 441, bf16, seeded weights)
@@ -158,9 +157,9 @@ wall seconds, each under a watchdog:
      (the fp8 control must lie over 4x it), or where the song's vocals
      are not clip(mix - accompaniment).
 
-Each of the paths of phases 5, 8 to 15, 17 and 13's optimise() is driven with
-the kernels' launch counts set to 0 just before it and read just after (a
-graph replay adds the launches its capture recorded).
+Each of the paths of phases 5, 8 to 11, 13 to 15, 17 and 13's optimise()
+is driven with the kernels' launch counts set to 0 just before it and read
+just after (a graph replay adds the launches its capture recorded).
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Without a card, or run outside a
@@ -185,7 +184,7 @@ SEED = 1234
 LIMITS = {"nvidia-smi": 30, "build": 400, "kernels": 120, "timing": 180,
           "im2col": 240, "serve": 420, "forward": 300, "presets": 240,
           "sweep": 240, "graphs": 240, "spectro": 300, "stream": 240,
-          "m6": 120, "bench": 420, "train": 150, "eval": 420, "cli": 180,
+          "m6": 120, "train": 150, "eval": 420, "cli": 180,
           "resample": 300, "dist": 300, "bs_roformer": 600}
 
 # Peaks of one H100 SXM (NVIDIA data sheet) for the bounds: dense TF32 on
@@ -202,8 +201,6 @@ INTERP_LIB_ATOL = 1e-5  # cuDNN may fuse the two products (one rounding less)
 FORWARD_ATOL = 1e-4  # 25 conv layers of such sums, then tanh
 SMALL_ATOL = 2e-5    # the CPU tests' forward tolerance, at a small width
 REPEATS = 3          # each request is served this many times; median wall
-SWEEP_ATOL = 2e-6    # sweep vs separate, conv sources (tests/test_infer.py)
-SWEEP_DIFF_ATOL = 4e-5  # the int16 difference source: mix quantised or not
 SPECTRO_ATOL = 5e-5  # U7 on the card vs the CPU path (tests/test_compat.py)
 BF16_OP_RTOL = 1e-5  # a bf16 conv vs fp64 on its rounded operands, of the
                      # output's largest value: fp32 sums of exact products
@@ -214,7 +211,6 @@ SPECTRO_BF16_ATOL = 5e-3  # U7 in bf16 vs the CPU's bf16 and the card's
 BF16_DIFFERS = 1e-5  # bf16 differs from fp32 by more than this
 STREAM_ATOL = 1e-5   # stream vs offline (tests/test_streaming.py)
 STREAM_BATCH_ATOL = 1e-6  # batched vs serial drains where conv plans differ
-BENCH_REPS_MIN = 14  # the bench's REPS_MIN
 WIRE_STEP = 1.0 / 32767  # one int16 step: two outputs within a tolerance
                          # of each other may round to neighbouring steps
 
@@ -262,6 +258,53 @@ def time_cuda(fn, torch, min_s: float = 0.2, max_iters: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def make_bench_song(sr: int, seconds: float = 60.0):
+    """The song of phases sweep, m6 and resample: a 440 Hz sine + noise,
+    stereo float32, seed 0."""
+    import numpy as np
+
+    n = int(seconds * sr)
+    rng = np.random.default_rng(0)
+    t = np.arange(n) / sr
+    mono = (0.3 * np.sin(2 * np.pi * 440 * t)
+            + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    return np.stack([mono, mono], axis=1)
+
+
+def waveunet_conv_flops(cfg, in_len: int) -> int:
+    """Multiply-add FLOPs (2 per MAC) of every conv of one window of the
+    Wave-U-Net forward, walked from the input length as the model runs."""
+    ctx, f0 = cfg.context, cfg.num_initial_filters
+    L, cin, flops = in_len, cfg.num_channels, 0
+
+    def conv(L, K, cin, cout):
+        L_out = L - K + 1 if ctx else L
+        return L_out, 2 * L_out * K * cin * cout
+
+    skips = []
+    for i in range(cfg.num_layers):
+        cout = f0 + f0 * i
+        L, fl = conv(L, cfg.filter_size, cin, cout)
+        flops += fl
+        skips.append((L, cout))
+        L, cin = (L + 1) // 2, cout
+    cout = f0 + f0 * cfg.num_layers
+    L, fl = conv(L, cfg.filter_size, cin, cout)
+    flops += fl
+    cin = cout
+    for i in range(cfg.num_layers):
+        L = 2 * L - 1 if ctx else 2 * L
+        skip_ch = skips[-i - 1][1]
+        L, fl = conv(L, cfg.merge_filter_size, skip_ch + cin, skip_ch)
+        flops += fl
+        cin = skip_ch
+    n_out = (cfg.num_sources if cfg.output_type == "direct"
+             else cfg.num_sources - 1)
+    _, fl = conv(L, cfg.output_filter_size, cin + cfg.num_channels,
+                 cfg.num_channels)
+    return flops + n_out * fl
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
@@ -1010,11 +1053,6 @@ def main() -> int:
         m6_row = m6_check(get_config, model, Separator, conv1d_fused, interp,
                           np, torch, dev)
 
-    with phase("bench"):
-        kernels.reset_launches()
-        bench_rec = bench_check()
-        path_launches["bench"] = kernels.launch_counts()
-
     with phase("train"):
         train_row = train_check(get_config, model, conv1d_fused, interp,
                                 kernels, np, torch, dev)
@@ -1039,7 +1077,6 @@ def main() -> int:
         dist_row = dist_check(get_config, model, kernels, requests, smi, np,
                               torch, dev)
         path_launches["dist"] = dist_row["launches"]
-        path_launches["dist_sweep"] = dist_row["sweep_launches"]
 
     with phase("bs_roformer"):
         roformer_row = bs_roformer_check(get_config, Separator, kernels, np,
@@ -1110,7 +1147,6 @@ def main() -> int:
     print(f"spectro: {json.dumps(spectro_row)}", flush=True)
     print(f"stream: {json.dumps(stream_row)}", flush=True)
     print(f"m6: {json.dumps(m6_row)}", flush=True)
-    print(f"bench: {json.dumps(bench_rec)}", flush=True)
     print(f"train: {json.dumps(train_row)}", flush=True)
     print(f"eval: {json.dumps(eval_row)}", flush=True)
     print(f"cli: {json.dumps(cli_row)}", flush=True)
@@ -1314,14 +1350,13 @@ def request_breakdown(sep, audio, sr, torch):
 
 def sweep_check(get_config, model, Separator, conv1d_fused, interp, kernels,
                 np, torch, dev):
-    """The bench's resident sweep (full_44KHz, 65,536-frame window, batch
-    16, the 60 s bench song) on both wires: eager and as one CUDA graph,
-    which must agree bit for bit; against separate() on the card
-    (SWEEP_ATOL, SWEEP_DIFF_ATOL for the int16 difference source) and
-    against separate() through the plain path (plain_tols), which holds the
-    kernels at every chunk size of the schedule (16, 8 and 1 windows); timed
-    eager and graphed; the graph's replays counted into the launches."""
-    from waveunet_tpu_torch.bench import make_bench_song
+    """separate() of the 60 s bench song (full_44KHz, 65,536-frame window,
+    batch 16) on both wires, eagerly: through the kernels against the same
+    request through the plain path (plain_tols), which holds the kernels at
+    every chunk size of the schedule (16, 8 and 1 windows); its kernel
+    launches from a reset, and its walls (``request_breakdown``, median of
+    REPEATS)."""
+    from waveunet_tpu_torch.infer.engine import window_positions
 
     rows = []
     for wire in ("int16", "float32"):
@@ -1331,70 +1366,47 @@ def sweep_check(get_config, model, Separator, conv1d_fused, interp, kernels,
             torch.Generator().manual_seed(SEED), cfg, dev))
         sr = cfg.expected_sr
         song = make_bench_song(sr, 60.0)
-        n = len(song)
-        song_dev = sep.stage_resident(song)
-        eager_fn, positions = sep.resident_sweep(n, graphed=False)
-        graph_fn, _ = sep.resident_sweep(n)
-        eager, eager_cs = eager_fn(sep.params, song_dev)
-        graphed, graph_cs = graph_fn(sep.params, song_dev)
-        torch.cuda.synchronize()
         names = list(cfg.source_names)
-        same = all(torch.equal(eager[k], graphed[k]) for k in names)
-        same = same and torch.equal(eager_cs, graph_cs)
-        host = sep.separate(song, sr)
-        with plain_path(model, conv1d_fused, interp):
-            plain = sep.separate(song, sr)
-        swept = {k: graphed[k].cpu().numpy() for k in names}
-        wire_row = (wire_check(sep, song, np, torch) if wire == "int16"
-                    else None)
-        errs = {k: float(np.abs(swept[k] - host[k]).max()) for k in names}
-        tols = {k: (SWEEP_DIFF_ATOL if wire == "int16" and k == names[-1]
-                    else SWEEP_ATOL) for k in names}
-        # separate() rebuilds the difference source from the unquantised mix
-        plain_tol = plain_tols(cfg, mix_rounding=(
-            SWEEP_DIFF_ATOL if wire == "int16" else 0.0))
-        plain_errs = {k: float(np.abs(swept[k] - plain[k]).max())
-                      for k in names}
-        sizes = sep.resident_chunk_sizes(len(positions))
-        graph = graph_fn.held["graph"]
         kernels.reset_launches()
-        graph.replays = 0
-        for _ in range(3):
-            graph_fn(sep.params, song_dev)
+        host = sep.separate(song, sr)
         torch.cuda.synchronize()
         counted = kernels.launch_counts()
-        want = {k: 3 * v for k, v in graph.launches.items()}
+        with plain_path(model, conv1d_fused, interp):
+            plain = sep.separate(song, sr)
+        wire_row = (wire_check(sep, song, np, torch) if wire == "int16"
+                    else None)
+        plain_tol = plain_tols(cfg)
+        plain_errs = {k: float(np.abs(host[k] - plain[k]).max())
+                      for k in names}
+        n_win = len(window_positions(len(song), sep.out_len))
+        sizes = sep._chunk_sizes(n_win)
         per_chunk = {"conv1d_lrelu": 2 * cfg.num_layers + 1,
                      "learned_interp": cfg.num_layers,
                      "conv1d_lrelu_im2col": 0, "resample_poly": 0,
                      "attention": 0}
-        per_graph = {k: v * len(sizes) for k, v in per_chunk.items()}
-        eager_ms = time_cuda(lambda: eager_fn(sep.params, song_dev), torch)
-        graph_ms = time_cuda(lambda: graph_fn(sep.params, song_dev), torch)
-        row = {"wire": wire, "windows": len(positions), "chunks": sizes,
-               "graph_identical_to_eager": same, "max_abs_err_vs_separate":
-               errs, "tol": tols, "max_abs_err_vs_plain_separate":
-               plain_errs, "plain_tol": plain_tol,
-               "eager_ms": eager_ms, "graph_ms": graph_ms,
-               "eager_audio_s_per_s": 60.0 / (eager_ms / 1e3),
-               "graph_audio_s_per_s": 60.0 / (graph_ms / 1e3),
-               "replays": graph.replays, "launches_per_replay":
-               graph.launches, "launches": counted}
+        want = {k: v * len(sizes) for k, v in per_chunk.items()}
+        walls = [request_breakdown(sep, song, sr, torch)
+                 for _ in range(REPEATS)]
+        wall_ms = float(np.median([w["wall_ms"] for w in walls]))
+        row = {"wire": wire, "windows": n_win, "chunks": sizes,
+               "max_abs_err_vs_plain_separate": plain_errs,
+               "plain_tol": plain_tol, "launches": counted,
+               "wall_ms": [w["wall_ms"] for w in walls],
+               "median_wall_ms": wall_ms,
+               "audio_s_per_s": 60.0 / (wall_ms / 1e3),
+               "host_ms": [w["host_ms"] for w in walls],
+               "wait_ms": [w["wait_ms"] for w in walls]}
         if wire_row is not None:
             row["wire_dequantiser"] = wire_row
         print(f"sweep {json.dumps(row)}", flush=True)
-        if not same:
-            fail(f"the graphed sweep ({wire}) differs from the eager sweep")
         if not all(np.isfinite(host[k]).all() for k in names):
-            fail("the sweep's song separated to non-finite audio")
-        if any(not errs[k] <= tols[k] for k in names):
-            fail(f"the sweep ({wire}) disagrees with separate()")
+            fail("the bench song separated to non-finite audio")
         if any(not plain_errs[k] <= plain_tol[k] for k in names):
-            fail(f"the sweep ({wire}) disagrees with separate() through "
+            fail(f"separate() ({wire}) through the kernels disagrees with "
                  f"the plain path")
-        if graph.launches != per_graph or counted != want:
-            fail(f"the sweep's launches {counted} are not 3 replays of "
-                 f"{per_graph}")
+        if counted != want:
+            fail(f"separate()'s launches {counted} are not {len(sizes)} "
+                 f"chunks of {per_chunk}")
         rows.append(row)
     return rows
 
@@ -1436,7 +1448,8 @@ def wire_check(sep, song, np, torch):
     cpu_sep = Separator(sep.cfg, {k: {n: t.cpu() for n, t in v.items()}
                                   for k, v in sep.params.items()},
                         device="cpu")
-    staged = sep.stage_resident(song)
+    staged = sep._stage(song, len(song) + 2 * sep.pad).to(sep.device,
+                                                          copy=True)
     pos = window_positions(len(song), sep.out_len)[:sep.batch]
     pos_t = torch.from_numpy(pos)
     card_in = sep._frame(staged, pos_t.to(sep.device))
@@ -2027,71 +2040,50 @@ def stream_check(get_config, model, Separator, conv1d_fused, interp,
 
 def m6_check(get_config, model, Separator, conv1d_fused, interp, np, torch,
              dev):
-    """M6 (full_multi_instrument) at the bench's full width and schedule
-    (65,536-frame window, batch 16, int16 wire, the 60 s bench song): the
-    eager resident sweep through the kernels against the same sweep through
-    the plain path (plain_tols), at every chunk size it launches."""
-    from waveunet_tpu_torch.bench import make_bench_song
+    """M6 (full_multi_instrument) at full width (65,536-frame window,
+    batch 16, int16 wire, the 60 s bench song): separate(), eager with no
+    precompile(), through the kernels against the same request through the
+    plain path (plain_tols), at every chunk size it launches."""
+    from waveunet_tpu_torch.infer.engine import window_positions
 
     cfg = get_config("full_multi_instrument", infer_num_frames=65536,
                      infer_batch=16, infer_wire_dtype="int16")
     sep = Separator(cfg, model.init_waveunet(
         torch.Generator().manual_seed(SEED), cfg, dev))
-    song = make_bench_song(cfg.expected_sr, 60.0)
-    song_dev = sep.stage_resident(song)
-    fn, positions = sep.resident_sweep(len(song), graphed=False)
-    got, _ = fn(sep.params, song_dev)
+    sr = cfg.expected_sr
+    song = make_bench_song(sr, 60.0)
+    got = sep.separate(song, sr)
     with plain_path(model, conv1d_fused, interp):
-        want, _ = fn(sep.params, song_dev)
+        want = sep.separate(song, sr)
     tols = plain_tols(cfg)
-    errs = {k: (got[k] - want[k]).abs().max().item() for k in got}
+    errs = {k: float(np.abs(got[k] - want[k]).max()) for k in got}
+    n_win = len(window_positions(len(song), sep.out_len))
     row = {"config": "full_multi_instrument", "layers": cfg.num_layers,
            "filters": cfg.num_initial_filters,
-           "sources": list(cfg.source_names), "windows": len(positions),
-           "chunks": sep.resident_chunk_sizes(len(positions)),
+           "sources": list(cfg.source_names), "windows": n_win,
+           "chunks": sep._chunk_sizes(n_win),
            "max_abs_err_vs_plain": errs, "tol": tols}
     print(f"m6 {json.dumps(row)}", flush=True)
-    if not all(torch.isfinite(v).all().item() for v in got.values()):
-        fail("M6's sweep gave non-finite audio")
+    if not all(np.isfinite(v).all() for v in got.values()):
+        fail("M6's request gave non-finite audio")
     if any(not errs[k] <= tols[k] for k in errs):
-        fail("M6's sweep through the kernels disagrees with the plain path")
+        fail("M6's request through the kernels disagrees with the plain "
+             "path")
     return row
 
 
-def plain_tols(cfg, mix_rounding: float = 0.0):
+def plain_tols(cfg):
     """Per source, how far a separation through the kernels may lie from
     one through the plain path: FORWARD_ATOL for a network output, one
     WIRE_STEP more on the int16 wire; the difference source, clip(mix -
-    the others), carries the others' errors summed, and ``mix_rounding``
-    where the two sides rebuild it from differently quantised mixes."""
+    the others), carries the others' errors summed."""
     names = list(cfg.source_names)
     tol = FORWARD_ATOL + (WIRE_STEP if cfg.infer_wire_dtype == "int16"
                           else 0.0)
     tols = {k: tol for k in names}
     if cfg.output_type == "difference":
-        tols[names[-1]] = (len(names) - 1) * tol + mix_rounding
+        tols[names[-1]] = (len(names) - 1) * tol
     return tols
-
-
-def bench_check():
-    """The port's bench (waveunet_tpu_torch/bench.py) at its REPS_MIN
-    interleaved e2e pairs: every key of its JSON line, with positive
-    numbers."""
-    from waveunet_tpu_torch import bench
-
-    rec = bench.run(reps=(BENCH_REPS_MIN, BENCH_REPS_MIN))
-    print(f"bench line: {json.dumps(rec)}", flush=True)
-    missing = [k for k in bench.REQUIRED_KEYS if k not in rec]
-    if missing:
-        fail(f"the bench's JSON line lacks {missing}")
-    for k in ("value", "vs_baseline", "compute_roof_audio_s_per_s",
-              "m6_resident_audio_s_per_s", "u7_resident_audio_s_per_s",
-              "e2e_rtf"):
-        if not (isinstance(rec[k], (int, float)) and rec[k] > 0):
-            fail(f"the bench's {k} is {rec[k]!r}")
-    if rec.get("smoke"):
-        fail("the bench ran in smoke mode on the card")
-    return rec
 
 
 # -- phase train -------------------------------------------------------------
@@ -2477,7 +2469,6 @@ def train_check(get_config, model, conv1d_fused, interp, kernels, np, torch,
     from waveunet_tpu_torch.train import checkpoint as ckpt
     from waveunet_tpu_torch.train import loop
     from waveunet_tpu_torch.train import step as step_mod
-    from waveunet_tpu_torch.bench import waveunet_conv_flops
 
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
@@ -3062,7 +3053,6 @@ def served_resample_check(get_config, model, kernels, np, torch, dev):
     from torch.profiler import ProfilerActivity, profile
 
     from waveunet_tpu_torch import tracing
-    from waveunet_tpu_torch.bench import make_bench_song
     from waveunet_tpu_torch.infer.engine import Separator
     from waveunet_tpu_torch.ops.resample import resample
 
@@ -3343,16 +3333,6 @@ def dist_rank(rank, port, workdir):
 
             out["launches"] = counted()
             out.update({f"sep/{k}": v for k, v in res.items()})
-            # the mesh resident sweep: gloo runs it eagerly, and says so
-            fn, _ = sep.resident_sweep(audio.shape[0])
-            song = sep.stage_resident(audio)
-            kernels.reset_launches()
-            swept, checksum = fn(sep.params, song)
-            torch.cuda.synchronize()
-            out["sweep_launches"] = counted()
-            out["sweep_checksum"] = np.asarray(float(checksum))
-            out.update({f"sweep/{k}": v.cpu().numpy()
-                        for k, v in swept.items()})
             # U7: this rank's 2 rows of the global batch of 4
             per = DIST_U7_BATCH // mesh.size
             loss, up, ust, ug = u7_mesh_step(
@@ -3381,7 +3361,7 @@ def dist_check(get_config, model, kernels, requests, smi, np, torch, dev):
 
     from waveunet_tpu_torch.compat.params import params_to_numpy
     from waveunet_tpu_torch.data.device_cache import ShardedBank
-    from waveunet_tpu_torch.infer.engine import Separator, window_positions
+    from waveunet_tpu_torch.infer.engine import Separator
     from waveunet_tpu_torch.ops import shapes
     from waveunet_tpu_torch.parallel import distributed as D
     from waveunet_tpu_torch.parallel.mesh import make_mesh
@@ -3419,16 +3399,6 @@ def dist_check(get_config, model, kernels, requests, smi, np, torch, dev):
     _, _, _, loss_ref = step(p_ref, {}, init_opt(p_ref), batch)
     loss_ref = float(loss_ref)
     u7_ref = u7_mesh_step(get_config, np, torch, dev, None)
-    fsep = Separator(cfg, params(), device=dev)
-    song = fsep.stage_resident(audio)
-    sweep_ref = {}  # graphed: mesh-free (outputs, checksum, launches)
-    for graphed in (False, True):
-        fn, _ = fsep.resident_sweep(audio.shape[0], graphed=graphed)
-        kernels.reset_launches()
-        o, ck = fn(fsep.params, song)
-        torch.cuda.synchronize()
-        sweep_ref[graphed] = ({k: v.clone() for k, v in o.items()},
-                              float(ck), kernels.launch_counts())
 
     # (a) a world of one over NCCL, the group destroyed afterwards
     D.initialize(f"localhost:{free_port()}", 1, 0, timeout_s=DIST_JOIN_S)
@@ -3499,26 +3469,6 @@ def dist_check(get_config, model, kernels, requests, smi, np, torch, dev):
         a["u7_step"]["bit_for_bit"] = (loss_u7 == u7_ref[0]
                                        and not a["u7_step"]["params_differ"])
 
-        # the mesh resident sweep, eager and graphed (the gather captured)
-        msep = Separator(cfg, params(), mesh=mesh)
-        msong = msep.stage_resident(audio)
-        a["resident_sweep"] = {}
-        for graphed in (False, True):
-            fn, _ = msep.resident_sweep(audio.shape[0], graphed=graphed)
-            kernels.reset_launches()
-            o, ck = fn(msep.params, msong)
-            torch.cuda.synchronize()
-            want_o, want_ck, want_l = sweep_ref[graphed]
-            got_l = kernels.launch_counts()
-            held = getattr(fn, "held", {}).get("graph")
-            a["resident_sweep"]["graphed" if graphed else "eager"] = {
-                "chunks": msep.resident_chunk_sizes(
-                    len(window_positions(audio.shape[0], msep.out_len))),
-                "launches": got_l, "launches_mesh_free": want_l,
-                "graph_replays": held.replays if held is not None else 0,
-                "bit_for_bit": (all(torch.equal(o[k], want_o[k])
-                                    for k in want_o) and ck == want_ck
-                                and got_l == want_l)}
 
         x = 1.0 + 2.0 ** -30  # float32 rounds it to 1.0
         got_mean = D.pod_weighted_mean(x, 1)
@@ -3547,16 +3497,6 @@ def dist_check(get_config, model, kernels, requests, smi, np, torch, dev):
     if not a["u7_step"]["bit_for_bit"]:
         fail(f"dist: U7's mesh step differs from its mesh-free step: "
              f"{a['u7_step']}")
-    for mode, r in a["resident_sweep"].items():
-        if not r["bit_for_bit"]:
-            fail(f"dist: the {mode} mesh resident sweep differs from the "
-                 f"mesh-free one: {r}")
-        if not (r["launches"]["conv1d_lrelu"] > 0
-                and r["launches"]["learned_interp"] > 0):
-            fail(f"dist: the {mode} mesh resident sweep launched no conv or "
-                 f"interp kernel")
-    if not a["resident_sweep"]["graphed"]["graph_replays"]:
-        fail("dist: the graphed mesh resident sweep was not replayed")
     sep_l = a["separator"]["launches"]
     if not (sep_l["conv1d_lrelu"] > 0 and sep_l["learned_interp"] > 0):
         fail("dist: the mesh Separator launched no conv or interp kernel")
@@ -3603,13 +3543,6 @@ def dist_check(get_config, model, kernels, requests, smi, np, torch, dev):
                       for r in ranks for k in one)
         sep_same = all(np.array_equal(ranks[0][f"sep/{k}"],
                                       ranks[1][f"sep/{k}"]) for k in one)
-        swept_ref = {k: v.cpu().numpy()
-                     for k, v in sweep_ref[False][0].items()}
-        sweep_err = max(float(np.abs(r[f"sweep/{k}"] - v).max())
-                        for r in ranks for k, v in swept_ref.items())
-        sweep_same = all(np.array_equal(ranks[0][f"sweep/{k}"],
-                                        ranks[1][f"sweep/{k}"])
-                         for k in swept_ref)
 
         def u7_tree(r, prefix):
             tree = {}
@@ -3642,14 +3575,6 @@ def dist_check(get_config, model, kernels, requests, smi, np, torch, dev):
              "launches": [dict(zip(("conv1d_lrelu", "learned_interp",
                                     "conv1d_lrelu_im2col"),
                                    r["launches"].tolist())) for r in ranks],
-             "resident_sweep": {
-                 "max_abs_err_vs_one_device": sweep_err,
-                 "ranks_equal": sweep_same,
-                 "checksums": [float(r["sweep_checksum"]) for r in ranks],
-                 "launches": [dict(zip(("conv1d_lrelu", "learned_interp",
-                                        "conv1d_lrelu_im2col"),
-                                       r["sweep_launches"].tolist()))
-                              for r in ranks]},
              "u7_step": {"loss": [float(r["u7_loss"]) for r in ranks],
                          "loss_single_process": u7_ref[0],
                          "loss_rel_err": u7_loss_rel,
@@ -3671,11 +3596,8 @@ def dist_check(get_config, model, kernels, requests, smi, np, torch, dev):
     if not (sep_err <= DIST_SEP_ATOL and sep_same):
         fail(f"dist (b): Separator(mesh) {sep_err:.3e} from one device")
     if not all(x["conv1d_lrelu"] > 0 and x["learned_interp"] > 0
-               for x in b["launches"] + b["resident_sweep"]["launches"]):
+               for x in b["launches"]):
         fail("dist (b): a rank launched no conv or interp kernel")
-    if not (sweep_err <= DIST_SEP_ATOL and sweep_same):
-        fail(f"dist (b): the mesh resident sweep {sweep_err:.3e} from one "
-             f"device")
     if not u7_identical:
         fail("dist (b): the ranks' U7 parameters differ after the step")
     if not u7_loss_rel <= DIST_LOSS_RTOL:
@@ -3688,10 +3610,6 @@ def dist_check(get_config, model, kernels, requests, smi, np, torch, dev):
                        + a["train_step"]["launches"][k]
                        + a["fused_epoch"]["launches"][k]
                        for k in a["separator"]["launches"]}
-    # the mesh resident sweep's own path (part a, eager then graphed)
-    row["sweep_launches"] = {
-        k: sum(r["launches"][k] for r in a["resident_sweep"].values())
-        for k in a["separator"]["launches"]}
     return row
 
 

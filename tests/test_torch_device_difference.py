@@ -81,11 +81,14 @@ def check_device_difference(sep, mix, sr):
 
 
 # windows of the request: a song shorter than one input (padded to one
-# input, two windows), 11 (chunks 8 + 4), 40 (16 + 16 + 8)
+# input, two windows), 11 (chunks 8 + 4), 12 with the last right-aligned
+# at a partial hop (8 + 4), 40 (16 + 16 + 8)
 LENGTHS = {"short": lambda sep: sep.in_len // 3,
            "split_tail": lambda sep: 10 * sep.out_len + sep.out_len // 2,
+           "partial_hop": lambda sep: 11 * sep.out_len + 9,
            "three_chunks": lambda sep: 40 * sep.out_len - 5}
-CHUNKS = {"short": [2], "split_tail": [8, 4], "three_chunks": [16, 16, 8]}
+CHUNKS = {"short": [2], "split_tail": [8, 4], "partial_hop": [8, 4],
+          "three_chunks": [16, 16, 8]}
 
 
 @pytest.mark.parametrize("length", sorted(LENGTHS))
@@ -133,7 +136,8 @@ def test_the_chunk_program_gives_the_last_source_on_the_float32_wire_only(
                        else unet(family, infer_wire_dtype=wire))
         sep = Separator(cfg, params, device="cpu")
         mix = song(2 * sep.out_len)
-        staged = sep.stage_resident(mix)
+        staged = sep._stage(mix, len(mix) + 2 * sep.pad).to(sep.device,
+                                                            copy=True)
         pos = torch.from_numpy(window_positions(len(mix), sep.out_len))
         out = sep._chunk_fwd(sep.params, staged, pos)
         names = list(cfg.source_names)
@@ -176,19 +180,3 @@ def test_a_float64_mix_differs_by_its_fp32_rounding_at_most(preset):
     assert last.dtype == np.float32
     np.testing.assert_allclose(last, host_rebuild(cfg, mix, out), rtol=0,
                                atol=float(np.spacing(np.float32(2.0))))
-
-
-@pytest.mark.parametrize("preset", PRESETS)
-def test_the_resident_sweep_stitches_the_chunk_programs_difference(preset):
-    """On the float32 wire the sweep stitches the chunk program's last
-    source, which is its old device rebuild from the device mix."""
-    cfg, params = unet(preset)
-    sep = Separator(cfg, params, device="cpu")
-    mix = song(11 * sep.out_len + 9)
-    fn, _ = sep.resident_sweep(len(mix), graphed=False)
-    out, checksum = fn(sep.params, sep.stage_resident(mix))
-    names = list(cfg.source_names)
-    rebuilt = torch.clamp(torch.from_numpy(mix)
-                          - sum(out[s] for s in names[:-1]), -1.0, 1.0)
-    assert torch.equal(out[names[-1]], rebuilt)
-    assert torch.equal(checksum, sum(v.sum() for v in out.values()))

@@ -188,3 +188,51 @@ def test_inference_only():
         params, cfg, mix, training=True).values())
     with pytest.raises(NotImplementedError):
         apply_waveunet(params, cfg.replace(network="unet_spectrogram"), mix)
+
+
+# -- the analytic FLOP count of chip_smoke.py (phase train's rates) ----------
+
+def test_flagship_flops_match_the_recorded_window_cost():
+    """37.48 GFLOP per 65,536-frame window (PERF.md section 4), 25.2 GFLOP
+    per audio-second, against the JAX bench's cost-analysis 25.3."""
+    import chip_smoke
+    from waveunet_tpu_torch.ops import shapes
+
+    cfg = get_config("full_44KHz")
+    in_len, out_len = shapes.get_padding(cfg, 65536)
+    flops = chip_smoke.waveunet_conv_flops(cfg, in_len)
+    assert abs(flops / 1e9 - 37.487) < 0.001
+    assert abs(flops / 1e9 / (out_len / 44100) - 25.22) < 0.01
+
+
+@pytest.mark.parametrize("preset,kw", [
+    ("full_44KHz", dict(num_layers=4, num_initial_filters=6)),
+    ("baseline", dict(num_layers=3, num_initial_filters=5)),
+    ("full_multi_instrument", dict(num_layers=3, num_initial_filters=4)),
+    ("baseline_context_smallfilter_deep", dict(num_layers=5))])
+def test_conv_flops_count_every_conv_of_the_forward(preset, kw, monkeypatch):
+    """The analytic count equals 2*MACs summed over the convs the model
+    actually runs on a window."""
+    import chip_smoke
+    from waveunet_tpu_torch.models import waveunet as model
+
+    cfg = get_config(preset, **kw)
+    in_len, _ = io_shapes(cfg)
+    counted = []
+    real_act, real_conv = model.conv1d_lrelu, model.conv1d
+
+    def act(x, w, b):
+        y = real_act(x, w, b)
+        counted.append(2 * y.shape[1] * w.numel())
+        return y
+
+    def conv(x, p, **k):
+        y = real_conv(x, p, **k)
+        counted.append(2 * y.shape[1] * p["kernel"].numel())
+        return y
+
+    monkeypatch.setattr(model, "conv1d_lrelu", act)
+    monkeypatch.setattr(model, "conv1d", conv)
+    params = init_waveunet(torch.Generator().manual_seed(0), cfg, "cpu")
+    apply_waveunet(params, cfg, torch.zeros(1, in_len, cfg.num_channels))
+    assert chip_smoke.waveunet_conv_flops(cfg, in_len) == sum(counted)

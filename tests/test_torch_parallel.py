@@ -11,8 +11,9 @@ process; here the processes are joined over gloo on the CPU:
     step against JAX's single-device step and JAX's step on a 2-device
     mesh, the ranks bit-identical, U7's data-parallel step (batch norm
     over the ranks) against JAX's 2-device step and against one process,
-    the window-parallel ``Separator`` and ``resident_sweep`` against
-    JAX's, the mesh-sharded bank, and the sharded BSS-Eval;
+    the window-parallel ``Separator`` against JAX's ``Separator`` and
+    against JAX's ``resident_sweep`` on a 2-device mesh, the mesh-sharded
+    bank, and the sharded BSS-Eval;
   * the ``train`` and ``evaluate`` commands as two pod processes each;
   * ``dryrun_multichip(2)``.
 
@@ -73,7 +74,7 @@ CLI_S = 180       # a pod CLI process's whole run
 LOSS_RTOL = 1e-5  # tests/test_parallel.py:52-56
 PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-6
 SEP_ATOL = 1e-5   # tests/test_parallel.py:87
-SWEEP_ATOL = 2e-5  # the port's sweep against JAX's (test_torch_sweep.py)
+SWEEP_ATOL = 2e-5  # separate() against JAX's sweep (test_torch_sweep.py)
 
 
 def np_tree(tree):
@@ -332,19 +333,8 @@ def test_world_of_one_separator_is_the_single_device_engine(group1, wire):
     got = sep.separate(audio, cfg.expected_sr)
     for s in cfg.source_names:
         np.testing.assert_array_equal(got[s], one[s])
-    # the resident sweep too, with the single-device chunk schedule
-    song = np.tile(audio, (-(-(sep.out_len * 4 + 7) // len(audio)), 1))
-    song = song[:sep.out_len * 4 + 7]
-    single = Separator(cfg, params, device="cpu")
-    sweeps = []
-    for engine in (single, sep):
-        fn, positions = engine.resident_sweep(len(song))
-        sweeps.append(fn(engine.params, engine.stage_resident(song)))
-        assert engine.resident_chunk_sizes(len(positions)) == [2, 2, 1]
-    for s in cfg.source_names:
-        assert torch.equal(sweeps[0][0][s], sweeps[1][0][s])
-    assert torch.equal(sweeps[0][1], sweeps[1][1])
     # one rank keeps the single-device schedule; several share full tails
+    single = Separator(cfg, params, device="cpu")
     assert [sep._chunk_sizes(n) for n in (1, 5, 11)] == [
         single._chunk_sizes(n) for n in (1, 5, 11)]
     two = Separator(cfg, params, mesh=Mesh((2,), ("data",),
@@ -571,20 +561,18 @@ def test_u7_dp_step_matches_one_process(two_ranks, name):
 
 
 @pytest.mark.parametrize("wire", ["float32", "int16"])
-def test_mesh_resident_sweep_matches_jax(two_ranks, wire):
-    """Two ranks' resident sweep (chunks of 8 windows, 4 a rank, gathered
-    before the device stitch) against JAX's on a 2-device mesh; under gloo
-    the graphed sweep runs eagerly and says so."""
+def test_mesh_separate_matches_jax_mesh_sweep(two_ranks, wire):
+    """Two ranks' separate() (chunks of 8 windows, 4 a rank, gathered onto
+    every rank) against JAX's resident sweep on a 2-device mesh; the ranks
+    return the same stems."""
     a, b = two_ranks["ranks"]
     want = two_ranks["jax_sweeps"][wire]
-    assert a[f"sweep_{wire}_sizes"].tolist() == [8, 8]
-    assert "eager" in str(a[f"sweep_{wire}_said"])
+    assert a[f"mesh_sep_{wire}_sizes"].tolist() == [8, 8]
     for s, v in want.items():
-        np.testing.assert_allclose(a[f"sweep_{wire}/{s}"], v,
+        np.testing.assert_allclose(a[f"mesh_sep_{wire}/{s}"], v,
                                    atol=SWEEP_ATOL, err_msg=s)
-        np.testing.assert_array_equal(a[f"sweep_{wire}/{s}"],
-                                      b[f"sweep_{wire}/{s}"])
-    assert a[f"sweep_{wire}_checksum"] == b[f"sweep_{wire}_checksum"]
+        np.testing.assert_array_equal(a[f"mesh_sep_{wire}/{s}"],
+                                      b[f"mesh_sep_{wire}/{s}"])
 
 
 def test_ranks_hold_bit_identical_params(two_ranks):

@@ -1,12 +1,14 @@
 """The port's engine beyond song mode, against the JAX package, on the CPU.
 
-``resident_sweep`` (the bench's headline path) against the JAX package's and
-against the port's own ``separate``; its chunk schedule and override; slab
-mode against song mode; the batched sweep against a serial per-window loop
-(the reference's semantics); the non-finite sentinel through a custom
-``forward_fn``; the spectrogram family through the same engine hooks. The
-CUDA graphs of ``precompile`` and of a graphed sweep need a card:
-``chip_smoke.py`` checks them there, and here their CPU refusal is pinned.
+``Separator.separate`` against the JAX package's ``resident_sweep`` (its
+whole engine in one program, a device stitch) on the same songs and wires;
+the chunk schedule against the JAX package's; slab mode against song mode
+and the staging room slabs read past the song's end; the batched sweep
+against a serial per-window loop (the reference's semantics); the
+non-finite sentinel through a custom ``forward_fn``; the spectrogram family
+through the same engine hooks. The CUDA graphs of ``precompile`` need a
+card: ``chip_smoke.py`` checks them there, and here their CPU refusal is
+pinned.
 """
 
 import numpy as np
@@ -55,60 +57,32 @@ def _padded(sep, audio):
 
 @pytest.mark.parametrize("wire,n_win", [("float32", 13), ("int16", 13),
                                         ("float32", 3), ("int16", 3)])
-def test_resident_sweep_matches_jax_and_separate(wire, n_win):
+def test_separate_matches_jax_resident_sweep(wire, n_win):
+    """The port's one serving path against the JAX package's whole-engine
+    program: the same windows, chunk forward, wire and stitch. On the int16
+    wire JAX's sweep rebuilds the difference source from the quantised mix,
+    ``separate`` from the float mix: they part by up to half a step there
+    (1.53e-5)."""
     jsep, jparams, sep = _pair(infer_wire_dtype=wire, **SWEEP)
     n = sep.out_len * (n_win - 1) + 31  # right-aligned last window
     audio = _audio(n)
-    padded = _padded(sep, audio)
-    fn, positions = sep.resident_sweep(n)
-    assert positions.shape[0] == n_win
-    out, checksum = fn(sep.params, torch.from_numpy(padded))
-    assert np.isfinite(float(checksum))
     jfn, jpos = jsep.resident_sweep(n)
-    np.testing.assert_array_equal(positions, jpos)
-    jout, _ = jfn(jparams, jnp.asarray(padded))
-    host = sep.separate(audio, sep.cfg.expected_sr)
+    assert jpos.shape[0] == n_win
+    np.testing.assert_array_equal(window_positions(n, sep.out_len), jpos)
+    jout, _ = jfn(jparams, jnp.asarray(_padded(sep, audio)))
+    got = sep.separate(audio, sep.cfg.expected_sr)
     names = sep.cfg.source_names
-    assert sorted(out) == sorted(names)
+    assert sorted(got) == sorted(names)
     for s in names:
-        got = out[s].numpy()
-        assert got.shape == (n, 1) and got.dtype == np.float32
-        np.testing.assert_allclose(got, np.asarray(jout[s]), atol=2e-5,
+        assert got[s].shape == (n, 1) and got[s].dtype == np.float32
+        np.testing.assert_allclose(got[s], np.asarray(jout[s]), atol=2e-5,
                                    err_msg=f"vs JAX {s}")
-        # int16 wire: the sweep rebuilds the difference source from the
-        # quantised mix, separate() from the float mix: up to one step
-        tol = 4e-5 if (wire == "int16" and s == names[-1]) else 2e-6
-        np.testing.assert_allclose(got, host[s], atol=tol,
-                                   err_msg=f"vs separate {s}")
 
 
 @pytest.mark.parametrize("n_win", [1, 3, 4, 7, 11, 13, 41])
-def test_resident_chunk_sizes_match_jax(n_win):
+def test_chunk_sizes_match_jax_at_the_sweep_config(n_win):
     jsep, _, sep = _pair(**SWEEP)
-    assert sep.resident_chunk_sizes(n_win) == jsep.resident_chunk_sizes(n_win)
-
-
-def test_resident_sweep_chunk_sizes_override():
-    """Any covering schedule gives the production schedule's output (up to
-    the order of the batch's sums); one that covers too few raises."""
-    _, _, sep = _pair(**SWEEP)
-    n = sep.out_len * 2 + 17  # 3 windows: the exact [3] chunk
-    padded = torch.from_numpy(_padded(sep, _audio(n)))
-    base, _ = sep.resident_sweep(n)[0](sep.params, padded)
-    for sizes in ([2, 1], [4], [1, 1, 1]):
-        out, _ = sep.resident_sweep(n, chunk_sizes=sizes)[0](sep.params,
-                                                             padded)
-        for s in sep.cfg.source_names:
-            np.testing.assert_allclose(out[s].numpy(), base[s].numpy(),
-                                       atol=1e-6, err_msg=f"{sizes} {s}")
-    with pytest.raises(ValueError, match="cover"):
-        sep.resident_sweep(n, chunk_sizes=[2])
-
-
-def test_resident_sweep_too_short_raises():
-    _, _, sep = _pair(**SWEEP)
-    with pytest.raises(ValueError, match="shorter than one output window"):
-        sep.resident_sweep(sep.out_len - 1)
+    assert sep._chunk_sizes(n_win) == jsep._chunk_sizes(n_win)
 
 
 @pytest.mark.parametrize("wire", ["float32", "int16"])
@@ -178,8 +152,8 @@ def test_batched_sweep_matches_serial_reference_loop(preset):
 
 @pytest.mark.parametrize("wire", ["float32", "int16"])
 def test_nonfinite_forward_reaches_the_host_as_nan(wire, tmp_path):
-    """A custom forward_fn that diverges comes back as NaN on both wires,
-    through separate() and through the resident sweep."""
+    """A custom forward_fn that diverges comes back as NaN on both wires
+    through separate()."""
     from waveunet_tpu_torch.data.audio_io import write_wav
 
     cfg = get_config("baseline", num_layers=3, num_frames=256, infer_batch=2,
@@ -201,25 +175,19 @@ def test_nonfinite_forward_reaches_the_host_as_nan(wire, tmp_path):
         assert np.isnan(out[s]).all(), (wire, s)
         with pytest.raises(ValueError, match="non-finite"):
             write_wav(str(tmp_path / f"{s}.wav"), out[s], cfg.expected_sr)
-    fn, _ = sep.resident_sweep(audio.shape[0])
-    res, checksum = fn(sep.params, torch.from_numpy(_padded(sep, audio)))
-    assert all(torch.isnan(v).all() for v in res.values())
-    assert torch.isnan(checksum)
 
 
 def test_graphs_need_a_card():
-    """precompile() captures CUDA graphs and a graphed sweep is one: on a
-    CPU Separator both refuse instead of quietly running eagerly."""
+    """precompile() captures CUDA graphs: on a CPU Separator it refuses
+    instead of quietly running eagerly."""
     _, _, sep = _pair(**SWEEP)
     with pytest.raises(RuntimeError, match="CUDA graphs"):
         sep.precompile()
-    with pytest.raises(RuntimeError, match="CUDA device"):
-        sep.resident_sweep(sep.out_len, graphed=True)
 
 
-def test_resident_sweep_spectrogram_family():
-    """The U7 family through the same sweep (BN state, mask and iSTFT, no
-    difference source), against separate() and the JAX package's sweep."""
+def test_separate_spectrogram_family_matches_jax_resident_sweep():
+    """The U7 family through separate() (BN state, mask and iSTFT, no
+    difference source) against the JAX package's sweep."""
     from waveunet_tpu.models.spectrogram_unet import (
         init_spectrogram_unet as jax_init_spectro)
 
@@ -235,18 +203,14 @@ def test_resident_sweep_spectrogram_family():
     jsep = JaxSeparator(jcfg, jparams, model_state=jstate)
     n = sep.out_len * 2 + 917  # 3 windows: a full batch and a tail
     audio = _audio(n, seed=9)
-    host = sep.separate(audio, cfg.expected_sr)
+    got = sep.separate(audio, cfg.expected_sr)
     padded = np.pad(audio, [(sep.pad, sep.pad), (0, 0)])
-    fn, positions = sep.resident_sweep(n)
-    assert positions.shape[0] == 3
-    out, checksum = fn(sep.params, torch.from_numpy(padded))
-    assert np.isfinite(float(checksum))
-    jout, _ = jsep.resident_sweep(n)[0](jparams, jnp.asarray(padded))
+    jfn, jpos = jsep.resident_sweep(n)
+    assert jpos.shape[0] == 3
+    jout, _ = jfn(jparams, jnp.asarray(padded))
     for s in cfg.source_names:
-        np.testing.assert_allclose(out[s].numpy(), host[s], atol=2e-6,
+        np.testing.assert_allclose(got[s], np.asarray(jout[s]), atol=5e-5,
                                    err_msg=s)
-        np.testing.assert_allclose(out[s].numpy(), np.asarray(jout[s]),
-                                   atol=5e-5, err_msg=s)
 
 
 def test_engine_stages_the_song_with_the_native_quantiser():
@@ -265,18 +229,28 @@ def test_engine_stages_the_song_with_the_native_quantiser():
 
 
 @pytest.mark.parametrize("wire", ["float32", "int16"])
-def test_stage_resident_pads_and_quantises_as_separate(wire):
-    """The song the resident sweep takes comes from separate()'s own
-    staging: padded and wire-quantised, and not the host buffer that the
-    next request overwrites."""
+def test_stage_with_the_slab_room_pads_and_quantises(wire):
+    """Slab mode stages [pad zeros | mix, quantised on the int16 wire |
+    zeros up to the room the last chunk's slab reads]. The staging buffer
+    is reused: a longer song staged before leaves nothing in the room, and
+    a device copy of it outlives the next request."""
     _, _, sep = _pair(infer_wire_dtype=wire, **SWEEP)
     audio = _audio(sep.out_len * 3 + 5, seed=3)
-    staged = sep.stage_resident(audio)
-    want = _padded(sep, audio)
+    n_total = audio.shape[0]
+    length = n_total + 2 * sep.pad + (sep.batch - 1) * sep.out_len
+    sep._stage(np.full((length, 1), 0.5, np.float32), length)
+    staged = sep._stage(audio, length)
+    assert staged.shape == (length, 1)
     assert staged.dtype == (torch.int16 if wire == "int16" else torch.float32)
+    want = np.zeros((length, 1), staged.numpy().dtype)
+    want[sep.pad:sep.pad + n_total] = (quantize_int16(audio)
+                                       if wire == "int16" else audio)
     np.testing.assert_array_equal(staged.numpy(), want)
-    sep.separate(_audio(audio.shape[0], seed=4), sep.cfg.expected_sr)
-    np.testing.assert_array_equal(staged.numpy(), want)
+    np.testing.assert_array_equal(
+        staged.numpy()[:n_total + 2 * sep.pad], _padded(sep, audio))
+    copied = staged.to(sep.device, copy=True)
+    sep.separate(_audio(n_total, seed=4), sep.cfg.expected_sr)
+    np.testing.assert_array_equal(copied.numpy(), want)
 
 
 def test_window_positions_match_jax():

@@ -7,8 +7,6 @@ write. This module imports the port and numpy only, so a rank starts
 without JAX.
 """
 
-import contextlib
-import io
 import os
 import sys
 import traceback
@@ -60,7 +58,7 @@ def _checks(rank, n, workdir):
     from waveunet_tpu_torch.config import get_config
     from waveunet_tpu_torch.data.device_cache import ShardedBank
     from waveunet_tpu_torch.eval.bsseval_tpu import bss_eval_framewise_tpu
-    from waveunet_tpu_torch.infer.engine import Separator
+    from waveunet_tpu_torch.infer.engine import Separator, window_positions
     from waveunet_tpu_torch.models.waveunet import init_waveunet
     from waveunet_tpu_torch.ops import shapes
     from waveunet_tpu_torch.parallel import distributed as D
@@ -197,23 +195,18 @@ def _checks(rank, n, workdir):
         out.update(flatten(f"{name}_params", params_to_numpy(p)))
         out.update(flatten(f"{name}_state", params_to_numpy(st)))
 
-    # the resident sweep on the mesh, both wires: chunks of 8 windows, 4 a
-    # rank, gathered before the device stitch
+    # the window-parallel separate() at the JAX sweep tests' config, both
+    # wires: chunks of 8 windows, 4 a rank, gathered onto every rank
     for wire in ("float32", "int16"):
         wcfg = get_config("baseline", infer_wire_dtype=wire, **SWEEP)
         wsep = Separator(wcfg, params_from_numpy(
             unflatten(inp, "sweep_params"), "cpu"), mesh=mesh)
         audio = inp["sweep_audio"]
-        said = io.StringIO()
-        with contextlib.redirect_stdout(said):  # gloo: eager, and says so
-            fn, positions = wsep.resident_sweep(audio.shape[0], graphed=True)
-        got, checksum = fn(wsep.params, wsep.stage_resident(audio))
+        got = wsep.separate(audio, wcfg.expected_sr)
         for name, v in got.items():
-            out[f"sweep_{wire}/{name}"] = v.numpy()
-        out[f"sweep_{wire}_checksum"] = np.asarray(float(checksum))
-        out[f"sweep_{wire}_sizes"] = np.asarray(
-            wsep.resident_chunk_sizes(len(positions)))
-        out[f"sweep_{wire}_said"] = np.asarray(said.getvalue())
+            out[f"mesh_sep_{wire}/{name}"] = v
+        out[f"mesh_sep_{wire}_sizes"] = np.asarray(wsep._chunk_sizes(
+            len(window_positions(audio.shape[0], wsep.out_len))))
 
     # window-parallel fp32 BSS-Eval against the same call without a mesh
     refs, ests = inp["bss_refs"], inp["bss_ests"]

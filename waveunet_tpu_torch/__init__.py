@@ -6,23 +6,25 @@ entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 Every conv + LeakyReLU and learned interpolation of the inference forward
 runs in hand-written CUDA kernels (``ops/kernels/``) on the card.
 
-The serving surface: ``Separator`` (song and slab modes, CUDA graphs from
-``precompile``, the device-resident ``resident_sweep``),
-``StreamingSeparator``, both model families (Wave-U-Net and the U7
-spectrogram U-Net), TensorFlow-free checkpoint loaders and the bench
-(``python -m waveunet_tpu_torch.bench``). Training: ``optimise`` (two
-early-stopped rounds, checkpoints, resume), ``init_state``, and the
-device-resident data banks ``DeviceBank`` and ``EvalBank``; the training
+The serving surface: ``Separator``, whose ``separate`` is the one path every
+caller takes (song and slab modes, CUDA graphs from ``precompile``),
+``StreamingSeparator``, three model families (Wave-U-Net, the U7
+spectrogram U-Net and BS-RoFormer, which is served but not trained) and
+TensorFlow-free checkpoint loaders. The benchmark that measures the port on
+the card is ``python3 -m benchmark.run`` (``benchmark/``). Training:
+``optimise`` (two early-stopped rounds, checkpoints, resume),
+``init_state``, and the device-resident data banks ``DeviceBank`` and
+``EvalBank``; the training
 step runs plain differentiable ops, validation runs through the kernels.
 Evaluation: ``evaluate_musdb`` (``eval/``: the host fp64 BSS-Eval scorer,
 the fp32 and fp64 device scorers). The command line: ``python -m
 waveunet_tpu_torch <command>`` (``cli.py``). Several cards: one process a
 card joined by ``torch.distributed`` (``parallel/``), with ``make_mesh``
-over the ranks for data-parallel training of both model families
+over the ranks for data-parallel training of the Wave-U-Net and U7
 (``optimise``, the sharded bank ``ShardedBank``; U7's batch norm takes its
-statistics over every rank's rows), window-parallel ``Separator``,
-``resident_sweep`` and ``evaluate_musdb``, and ``dryrun_multichip``, the
-multi-process dry run on the CPU. Also: ``resample_device`` (the polyphase
+statistics over every rank's rows), window-parallel ``Separator`` and
+``evaluate_musdb``, and ``dryrun_multichip``, the multi-process dry run on
+the CPU. Also: ``resample_device`` (the polyphase
 resampler on the card), MPEG audio through ``data.audio_io.load``
 (libmpg123), the reference's ``Utils`` names in
 ``waveunet_tpu_torch.utils``, and the trained-quality tool ``python -m

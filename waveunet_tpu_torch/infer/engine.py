@@ -6,7 +6,9 @@ padding of songs shorter than one network input, context padding, windows at
 hop = output length with the last one right-aligned, stitching in window
 order (later writes win), and the difference source.
 
-The host pipeline of ``separate``:
+``Separator.separate`` is the engine's one serving path: ``separate_file``,
+the command line, the evaluation harness and the benchmark all reach it.
+Its host pipeline:
 
   * a song at another rate than the model's is resampled on the card
     when the Separator's device is CUDA: copied into a pinned host buffer
@@ -48,12 +50,6 @@ The host pipeline of ``separate``:
     one shared memory pool); ``separate`` replays a graph wherever one fits
     and runs eagerly otherwise.
 
-``resident_sweep`` runs the whole engine on a device-resident song (framing,
-every chunk, the wire round trip, a device stitch; the difference source
-stitched from the chunk program's on the float32 wire, rebuilt from the
-device mix on the int16 wire) and returns a scalar checksum: the bench's
-headline path, captured as one CUDA graph per song length on the card.
-
 Window parallelism (``mesh``, ``parallel/mesh.py``; every rank calls
 ``separate`` with the same song): a chunk holds ``infer_batch`` windows a
 rank, rank r runs rows ``[r*infer_batch, (r+1)*infer_batch)`` of each
@@ -62,17 +58,14 @@ every rank returns the same stems, and a world of one is the single-device
 engine bit for bit. Each rank stages the song itself and slabs are off;
 on several ranks the tail chunk stays at the full batch, as in the JAX
 package. ``precompile`` captures the per-rank forward; the gather stays
-outside the graphs. ``resident_sweep`` splits its chunks the same way and
-gathers each chunk's outputs before the device stitch on every rank; its
-CUDA graph captures the gather under NCCL, and under gloo, whose
-collectives cannot be captured, it runs eagerly.
+outside the graphs.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,9 +74,8 @@ from waveunet_tpu_torch import tracing
 from waveunet_tpu_torch.config import Config
 from waveunet_tpu_torch.device import DeviceLike, resolve_device
 from waveunet_tpu_torch.infer.wire import (INT16_NONFINITE, dequantize,
-                                           from_wire, from_wire_np,
-                                           full_scale, quantize_int16,
-                                           to_wire)
+                                           from_wire_np, full_scale,
+                                           quantize_int16, to_wire)
 from waveunet_tpu_torch.ops import shapes
 from waveunet_tpu_torch.ops.kernels import Graph, capture
 from waveunet_tpu_torch.ops.kernels.resample_poly import resample_poly_cuda
@@ -347,132 +339,6 @@ class Separator:
                              f"{time.perf_counter() - t0:.1f}s")
         return len(self._graphs)
 
-    # -- the device-resident sweep --------------------------------------------
-    def resident_chunk_sizes(self, n_win: int) -> List[int]:
-        """The chunk schedule ``resident_sweep`` runs: one exact chunk for a
-        song below one batch, the pow2 split tail otherwise; on a mesh of
-        several ranks, full batches they share."""
-        if not self._full_tail and n_win < self.batch:
-            return [n_win]
-        return self._chunk_sizes(n_win)
-
-    def resident_sweep(self, n_total: int,
-                       chunk_sizes: Optional[Sequence[int]] = None,
-                       graphed: Optional[bool] = None):
-        """The whole engine on a device-resident padded song of
-        ``n_total + 2 * pad`` frames (wire dtype): framing on the device,
-        every chunk through the forward, the wire round trip (the int16
-        sentinel back to NaN), a device stitch in window order (later
-        writes win); the difference source is stitched with the others on
-        the float32 wire, and rebuilt from the device mix on the int16
-        wire, as ``separate`` builds it.
-
-        Returns ``(fn, positions)``; ``fn(params, song) -> (sources,
-        checksum)`` with ``sources`` stitched ``[n_total, C]`` float32
-        tensors on the device and ``checksum`` a scalar tensor, so a caller
-        syncs on one scalar and no bulk data leaves the device.
-
-        ``graphed`` (default: on a CUDA device) captures ``fn`` as one CUDA
-        graph on its first call, for its song length and the params of that
-        call; each call then replays it, and its outputs are overwritten by
-        the next call.
-
-        On a ``mesh`` every rank calls ``fn`` with the same song: each chunk
-        of ``k`` windows runs ``k // mesh.size`` of them a rank, and the
-        outputs are gathered exactly (``gather_rows``) before the stitch,
-        so every rank returns the same sources. Under gloo the sweep runs
-        eagerly whatever ``graphed`` says, and prints so."""
-        if n_total < self.out_len:
-            raise ValueError(f"song shorter than one output window "
-                             f"({n_total} < {self.out_len}); pad first")
-        positions = window_positions(n_total, self.out_len)
-        n_win = int(positions.shape[0])
-        if chunk_sizes is not None:
-            sizes = [int(k) for k in chunk_sizes]
-            if sum(sizes) < n_win:
-                raise ValueError(f"chunk_sizes {sizes} cover {sum(sizes)} "
-                                 f"< {n_win} windows")
-        else:
-            sizes = self.resident_chunk_sizes(n_win)
-        mesh = self.mesh
-        if mesh is not None and any(k % mesh.size for k in sizes):
-            raise ValueError(f"chunk sizes {sizes} do not divide over "
-                             f"{mesh.size} mesh ranks")
-        pos_pad = np.full((sum(sizes),), positions[-1], np.int64)
-        pos_pad[:n_win] = positions
-        pos_dev = torch.from_numpy(pos_pad).to(self.device)
-        starts = positions.tolist()
-        out_len, pad = self.out_len, self.pad
-        names = list(self.cfg.source_names)
-        reconstruct_last = self._host_reconstruct_last
-
-        def sweep(params, song):
-            parts, off = [], 0
-            for k in sizes:
-                if mesh is None:
-                    parts.append(self._chunk_fwd(params, song,
-                                                 pos_dev[off:off + k]))
-                else:  # this rank's rows, gathered
-                    b = k // mesh.size
-                    lo = off + mesh.rank * b
-                    part = self._chunk_fwd(params, song, pos_dev[lo:lo + b])
-                    parts.append({n: gather_rows(v, mesh)
-                                  for n, v in part.items()})
-                off += k
-            out = {}
-            for name in parts[0]:
-                w = torch.cat([p[name] for p in parts])[:n_win]
-                if w.dtype == torch.int16:
-                    w = from_wire(w)
-                buf = torch.zeros((n_total, w.shape[2]), dtype=torch.float32,
-                                  device=song.device)
-                for i, p in enumerate(starts):  # later writes win
-                    buf[p:p + out_len] = w[i]
-                out[name] = buf
-            if reconstruct_last:
-                mix = song[pad:pad + n_total]
-                if mix.dtype == torch.int16:
-                    mix = dequantize(mix)
-                out[names[-1]] = torch.clamp(
-                    mix - sum(out[s] for s in names[:-1]), -1.0, 1.0)
-            checksum = sum(v.sum() for v in out.values())
-            return out, checksum
-
-        if graphed is None:
-            graphed = self.device.type == "cuda"
-        if graphed and mesh is not None and mesh.backend not in (None,
-                                                                 "nccl"):
-            print(f"resident sweep over a {mesh.size}-rank mesh "
-                  f"({mesh.backend}): eager, {mesh.backend} collectives "
-                  f"cannot be captured in a CUDA graph")
-            graphed = False
-        if not graphed:
-            return sweep, positions
-        if self.device.type != "cuda":
-            raise RuntimeError("a graphed resident sweep needs a CUDA device")
-        held = {}
-
-        def fn(params, song):
-            g = held.get("graph")
-            if g is None:
-                static = song.clone()
-                g = capture(lambda s: sweep(params, s), (static,))
-                held.update(graph=g, params=params)
-            elif params is not held["params"]:
-                raise ValueError("this graphed sweep was captured with other "
-                                 "params; call resident_sweep again")
-            static = g.inputs[0]
-            if song.shape != static.shape or song.dtype != static.dtype:
-                raise ValueError(f"song {tuple(song.shape)} {song.dtype} does "
-                                 f"not fit the captured sweep "
-                                 f"{tuple(static.shape)} {static.dtype}")
-            if song.data_ptr() != static.data_ptr():
-                static.copy_(song)
-            return g.replay()
-
-        fn.held = held  # the captured Graph, once fn has run
-        return fn, positions
-
     # -- full-song separation -------------------------------------------------
     def separate(self, mix_audio: np.ndarray,
                  mix_sr: int) -> Dict[str, np.ndarray]:
@@ -569,13 +435,6 @@ class Separator:
                                        else mix)
         host[self.pad + n:] = 0
         return song
-
-    def stage_resident(self, mix: np.ndarray) -> torch.Tensor:
-        """The song ``resident_sweep``'s ``fn`` takes: ``mix`` (frames x
-        channels, at the model's rate and channel count) padded and
-        quantised as ``separate`` stages it, copied to the device."""
-        staged = self._stage(mix, mix.shape[0] + 2 * self.pad)
-        return staged.to(self.device, copy=True)  # the buffer is reused
 
     def _run_batched(self, mix: np.ndarray, positions: np.ndarray,
                      n_total: int) -> Dict[str, np.ndarray]:
