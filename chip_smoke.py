@@ -1342,10 +1342,67 @@ def request_breakdown(sep, audio, sr, torch):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     rec = tracing.record()
     span_ms = {k: 1e3 * t for k, (_, t, _) in rec["spans"].items()}
-    wait_ms = span_ms["separate.wait"]  # each chunk's event, on the card
+    wait_ms = span_ms["separate.wait"]  # one event a request, on the card
     return {"seconds": audio.shape[0] / sr, "wall_ms": wall_ms,
             "host_ms": span_ms["separate"] - wait_ms, "wait_ms": wait_ms,
             "span_ms": span_ms, "counters": rec["counters"]}
+
+
+def placement_row(sep, audio, sr, np, torch):
+    """Three float32-wire requests: the first with every chunk's outputs
+    kept (a copy to the host as each chunk runs), its answer held against
+    the window rule that placing each chunk's windows by copy replaced
+    (every window in window order at its position, later writes win) and
+    checked page-locked; the second ``request_breakdown``'s; the third half
+    as long. The first answer must come out of the other two unchanged,
+    and every request's ``separate.placed_windows`` equal its
+    ``separate.windows``."""
+    from waveunet_tpu_torch.infer.engine import window_positions
+
+    chunks = []
+    run = sep._run_chunk
+
+    def spy(mode, inp, pos):
+        res = run(mode, inp, pos)
+        chunks.append({k: v.cpu() for k, v in res.items()})
+        return res
+
+    sep._run_chunk = spy
+    try:
+        out = sep.separate(audio, sr)
+    finally:
+        del sep._run_chunk
+    n_total = max(audio.shape[0], sep.in_len)
+    positions = window_positions(n_total, sep.out_len)
+    rule = {name: np.empty((n_total, sep.cfg.num_channels), np.float32)
+            for name in chunks[0]}
+    wi = 0
+    for res in chunks:
+        for b in range(min(next(iter(res.values())).shape[0],
+                           len(positions) - wi)):
+            p = int(positions[wi])
+            for name, v in res.items():
+                rule[name][p:p + sep.out_len] = v[b].numpy()
+            wi += 1
+    rule = {name: v[:audio.shape[0]] for name, v in rule.items()}
+    held = {name: v.copy() for name, v in out.items()}
+    bd = request_breakdown(sep, audio, sr, torch)
+    half = request_breakdown(sep, audio[:audio.shape[0] // 2], sr, torch)
+    return {
+        "window_rule": list(out) == list(rule) and all(
+            out[k].tobytes() == rule[k].tobytes() for k in rule),
+        "pinned": all(torch.from_numpy(v).is_pinned()
+                      for v in out.values()),
+        "held": all(out[k].tobytes() == held[k].tobytes() for k in held),
+        "placed": [(r["counters"].get("separate.placed_windows", 0),
+                    r["counters"]["separate.windows"]) for r in (bd, half)],
+        "breakdown": bd}
+
+
+def placement_ok(row) -> bool:
+    """``placement_row``'s checks all passed."""
+    return (row["window_rule"] and row["pinned"] and row["held"]
+            and all(p == w for p, w in row["placed"]))
 
 
 def sweep_check(get_config, model, Separator, conv1d_fused, interp, kernels,
@@ -1469,7 +1526,9 @@ def graphs_check(sep, requests, sr, kernels, np, torch):
     requests again through its CUDA graphs and pinned copies: identical bit
     for bit to the eager run, each chunk a replay, the kernels' launches
     counted from the replays; walls, host time and the wait on the card
-    beside the eager requests' (``request_breakdown``)."""
+    beside the eager requests' (``request_breakdown``); every window of
+    every request placed by a copy, and a graphed answer against the
+    window rule (``placement_row``)."""
     eager = [sep.separate(a, sr) for a in requests]
     eager_bd = [request_breakdown(sep, a, sr, torch) for a in requests]
     t0 = time.perf_counter()
@@ -1499,6 +1558,11 @@ def graphs_check(sep, requests, sr, kernels, np, torch):
             w.append(time.perf_counter() - t1)
         walls.append(float(np.median(w)))
     graph_bd = [request_breakdown(sep, a, sr, torch) for a in requests]
+    placement = placement_row(sep, requests[0], sr, np, torch)
+    placement.pop("breakdown")
+    placed = [(r["counters"].get("separate.placed_windows", 0),
+               r["counters"]["separate.windows"])
+              for r in eager_bd + graph_bd]
     audio_s = sum(a.shape[0] / sr for a in requests)
     # The engine's host pipeline alone: the same requests with a forward
     # that returns zeros (no model), every source copied back.
@@ -1529,7 +1593,8 @@ def graphs_check(sep, requests, sr, kernels, np, torch):
            "chunks": n_chunks, "launches": counted,
            "graphed_walls_s": walls,
            "graphed_audio_s_per_s": audio_s / sum(walls),
-           "eager": eager_bd, "graphed": graph_bd}
+           "eager": eager_bd, "graphed": graph_bd,
+           "placement": {**placement, "placed": placement["placed"] + placed}}
     for e, g in zip(eager_bd, graph_bd):
         print(f"request {e['seconds']:.1f} s: eager wall {e['wall_ms']:.2f} "
               f"ms, host {e['host_ms']:.2f} ms, wait {e['wait_ms']:.2f} ms; "
@@ -1548,6 +1613,11 @@ def graphs_check(sep, requests, sr, kernels, np, torch):
         fail("the graphed requests launched no conv or interp kernel")
     if any(r["counters"].get("separate.eager_chunks") for r in graph_bd):
         fail("a graphed request ran a chunk eagerly")
+    print(f"placement: {json.dumps(row['placement'])}", flush=True)
+    if not placement_ok(row["placement"]):
+        fail(f"a graphed answer is not the window rule bit for bit, not "
+             f"page-locked, changed by later requests, or not every window "
+             f"was placed: {json.dumps(row['placement'])}")
     return row
 
 
@@ -1558,8 +1628,10 @@ def difference_check(get_config, model, Separator, np, torch, dev):
     the graphs. The last stem must be bit for bit what the host rebuilt
     from the returned stems before (``np.clip(mix - sum(others), -1, 1)``
     in float32), every chunk a replay, one ``separate.device_difference``
-    a request and no ``separate.difference`` span; walls and the
-    request's spans (``request_breakdown``) beside."""
+    a request and no ``separate.difference`` span; the answer the window
+    rule's bit for bit, page-locked, and held through two later requests
+    (``placement_row``); walls and the request's spans
+    (``request_breakdown``) beside."""
     rows = {}
     for preset in ("full_44KHz", "full_multi_instrument"):
         cfg = get_config(preset)
@@ -1577,8 +1649,9 @@ def difference_check(get_config, model, Separator, np, torch, dev):
             out = sep.separate(song, sr)
             want = np.clip(song - sum(out[s] for s in names[:-1]), -1.0,
                            1.0).astype(np.float32)
-            bd = request_breakdown(sep, song, sr, torch)
-            row = {"graphs": n_graphs,
+            placed = placement_row(sep, song, sr, np, torch)
+            bd = placed.pop("breakdown")
+            row = {"graphs": n_graphs, **placed,
                    "bit_for_bit": bool(np.array_equal(out[names[-1]],
                                                       want)),
                    "differ": int(np.sum(out[names[-1]] != want)),
@@ -1597,6 +1670,11 @@ def difference_check(get_config, model, Separator, np, torch, dev):
                 fail(f"{preset} {mode}: the chunk program's difference "
                      f"source is not the host's rebuild bit for bit, or "
                      f"the request ran otherwise: {json.dumps(row)}")
+            if not placement_ok(row):
+                fail(f"{preset} {mode}: the answer is not the window rule "
+                     f"bit for bit, not page-locked, changed by later "
+                     f"requests, or not every window was placed: "
+                     f"{json.dumps(row)}")
         del sep, out, want
         torch.cuda.empty_cache()
     return rows

@@ -119,6 +119,7 @@ def test_record_self_times_and_counters(sep):
     sizes = sep._chunk_sizes(len(positions))
     assert len(sizes) >= 2
     counters = {"separate.windows": len(positions),
+                "separate.placed_windows": len(positions),
                 "separate.window_slots": sum(sizes),
                 "separate.chunks": len(sizes),
                 "separate.eager_chunks": len(sizes)}

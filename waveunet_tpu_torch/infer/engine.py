@@ -29,16 +29,22 @@ Its host pipeline:
   * windows are framed on the device by one gather from a device tensor of
     window starts, so a chunk's program has no host-side values in it;
   * windows sweep through the forward in chunks of ``infer_batch`` with a
-    power-of-two split tail; each chunk's outputs are copied back to pinned
-    host buffers on the compute stream right after its forward, and the host
-    stitches a chunk once its event has completed, while the device runs
-    the next ones;
+    power-of-two split tail; right after each chunk's forward, copies on
+    the compute stream place its windows straight into the answer: window
+    j sits at ``j * out_len``, so a chunk's real windows below the song's
+    last are one block, one copy a source, and the last window, right-
+    aligned, is a second copy after it (later writes win; padded slots are
+    not copied). The answer is one ``(n_total, C)`` host tensor a source in
+    the wire dtype, drawn for each request: page-locked on a CUDA device,
+    from PyTorch's pinned-memory cache (a block an earlier answer gave
+    back, already faulted in). The host waits once, on an event after the
+    last chunk, and copies no audio on the float32 wire;
   * the difference source, ``clip(mix - sum(others), -1, 1)`` of a
     difference-output Wave-U-Net or BS-RoFormer: on the float32 wire the
     chunk program computes it for each window from the centre of the
     window's own input (the Wave-U-Net's forward gives it, the BS-RoFormer
-    forward adds it, ``model_forward``), and it is copied back and
-    stitched like every other source, so the host builds nothing (counted
+    forward adds it, ``model_forward``), and it is placed in the answer
+    like every other source, so the host builds nothing (counted
     by ``separate.device_difference``). Every stitched sample of every
     source comes from the same window, where the mix is the staged song,
     so this is the host's rebuild bit for bit for a float32 song. On the
@@ -345,7 +351,13 @@ class Separator:
         """Separate (n_frames, n_channels) audio; returns sources at the
         model's ``expected_sr`` and channel count. A song at another rate
         is resampled on a CUDA device's card (``_card_resample``), on the
-        host otherwise."""
+        host otherwise.
+
+        Each request's sources are its own memory. On a CUDA device the
+        float32 wire's are page-locked: views of blocks drawn from PyTorch's
+        pinned-memory cache, which go back to it when the caller drops
+        them, so a caller that keeps many answers keeps that memory
+        locked."""
         self._requests += 1
         with tracing.span("separate", request=self._requests):
             cfg = self.cfg
@@ -438,7 +450,8 @@ class Separator:
 
     def _run_batched(self, mix: np.ndarray, positions: np.ndarray,
                      n_total: int) -> Dict[str, np.ndarray]:
-        """Sweep every window through the forward and stitch on the host."""
+        """Sweep every window through the forward, its outputs copied
+        straight into the answer (the module docstring); one wait."""
         dev, cuda = self.device, self.device.type == "cuda"
         n_win = positions.shape[0]
         sizes = self._chunk_sizes(n_win)
@@ -475,7 +488,8 @@ class Separator:
         elif cuda and self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(dev)
 
-        results = []  # per chunk: ({name: host [k, out_len, C]}, event)
+        C, L = self.cfg.num_channels, self.out_len
+        answer: Dict[str, torch.Tensor] = {}
         for ci, k in enumerate(sizes):
             with tracing.span("separate.chunk"):
                 pos = pos_dev[offsets[ci]:offsets[ci + 1]]
@@ -498,42 +512,36 @@ class Separator:
                            for k, v in res.items()}
                 else:
                     res = self._run_chunk("song", song_dev, pos)
-                host = {}
-                for name, v in res.items():
-                    off = int(offsets[ci]) * self.out_len * v.shape[2]
-                    h = self._host_buffer(
-                        f"out/{name}",
-                        int(offsets[-1]) * self.out_len * v.shape[2], v.dtype)
-                    h = h[off:off + v.numel()].view(v.shape)
-                    # stream-ordered, before the next replay overwrites v
-                    h.copy_(v, non_blocking=True)
-                    host[name] = h
-                event = None
-                if cuda:
-                    event = torch.cuda.Event()
-                    event.record(stream)
-                results.append((host, event))
-
-        out = {name: np.empty((n_total, self.cfg.num_channels),
-                              np.int16 if self._wire16 else np.float32)
-               for name in results[0][0]}
-        wi = 0
-        for host, event in results:  # stitch each chunk once it is back
-            if event is not None:
-                with tracing.span("separate.wait"):
-                    event.synchronize()
             with tracing.span("separate.stitch"):
-                wins = {name: h.numpy() for name, h in host.items()}
-                n = min(len(next(iter(wins.values()))), n_win - wi)
-                for b in range(n):
-                    p = int(positions[wi])
-                    for name, w in wins.items():  # later writes win
-                        out[name][p:p + self.out_len] = w[b]
-                    wi += 1
+                if not answer:  # on a card: blocks earlier answers gave back
+                    answer = {name: torch.empty(
+                        (n_total, C), dtype=self._wire_dtype, pin_memory=cuda)
+                        for name in res}
+                # Window j sits at j * L, the last right-aligned: the
+                # chunk's real windows below the last are one block, and
+                # the last goes after it (later writes win). Stream-ordered,
+                # before the next replay overwrites the outputs.
+                j0 = int(offsets[ci])
+                body = min(k, n_win - 1 - j0)
+                for name, v in res.items():
+                    a = answer[name]
+                    if body > 0:
+                        a[j0 * L:(j0 + body) * L].view(body, L, C).copy_(
+                            v[:body], non_blocking=True)
+                    if j0 + k >= n_win:
+                        a[n_total - L:].copy_(v[n_win - 1 - j0],
+                                              non_blocking=True)
+                tracing.count("separate.placed_windows", min(k, n_win - j0))
+        if cuda:
+            done = torch.cuda.Event()
+            done.record(stream)
+            with tracing.span("separate.wait"):
+                done.synchronize()
         if self._wire16:
             with tracing.span("separate.stitch"):
-                return {name: from_wire_np(buf) for name, buf in out.items()}
-        return out
+                return {name: from_wire_np(a.numpy())
+                        for name, a in answer.items()}
+        return {name: a.numpy() for name, a in answer.items()}
 
 
 def separate_file(cfg: Config, params, input_path: str,
